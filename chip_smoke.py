@@ -6,17 +6,26 @@ Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and this
 checkout; imports nothing of JAX. Phases, each failing loudly:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels from csrc/*.cu (nvcc, sm_90a);
+2. build the CUDA kernels from csrc/*.cu (nvcc, sm_90a, one process per
+   source, all started together);
 3. kernel vs plain: on every fixture of tests/torch_port_fixtures.py, each
    kernel (phase 1, histograms, scan pack) against its plain torch version
    on the card, exactly (all outputs are integers); phase 1 on the 4K frame
    also against the plain version on the CPU; kernel and plain times at 4K
-   (CUDA events, median of 10 warm runs);
-4. end to end: launch counts reset, every fixture encoded through
-   encode_array(device="cuda"), counts read, and each JPEG's sha256 held
-   against the JAX package's CPU goldens (tests/torch_port_goldens.json);
-   every kernel must have launched; the 4K frame also through the CLI;
-   warm 4K encode time.
+   (CUDA events, median of 10 warm runs); the slab scan pack on the small
+   odd batch and on the 1080p x 16 group, against its plain version and
+   against one scan-pack call per image, exactly, and the times of all
+   three on the 1080p group;
+4. end to end, each path driven with the launch counts reset just before
+   and read just after: every single-image fixture through
+   encode_array(device="cuda"); every batch fixture through
+   encode_batch(device="cuda") under three arms (the slab with one
+   scan-pack call per image, the slab with one slab scan-pack call per
+   group, DMMT_SLAB=0); each JPEG's sha256 held against the JAX package's
+   CPU goldens (tests/torch_port_goldens.json); each path's kernels must
+   have launched, the slab once in phase 1 per group; batch throughput of
+   each arm beside an encode_array loop; the 4K frame also through the
+   CLI; warm 4K encode time.
 
 The last three lines are the nvidia-smi line, a JSON object with one entry
 per kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
@@ -26,6 +35,7 @@ result, when no CUDA device is available.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -41,7 +51,20 @@ KERNEL_INFO = {
                    "dmmt_jpeg_encoder_tpu/ops/pallas_block_hist.py:138"),
     "scan_pack": ("dmmt_jpeg_encoder_tpu_torch/csrc/scan_pack.cu",
                   "dmmt_jpeg_encoder_tpu/bitstream/fused_pack.py:943"),
+    "scan_pack_slab": ("dmmt_jpeg_encoder_tpu_torch/csrc/scan_pack.cu",
+                       "dmmt_jpeg_encoder_tpu/bitstream/fused_pack.py:1061"),
 }
+# Published H100 SXM peaks at a 700 W limit: HBM bytes/s, and float32 (and
+# 32-bit integer) operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Operations per unit of work, counted from the kernels' arithmetic (an fma
+# counts as two): phase 1 per pixel (color 20, P420 subsample 4, Arai row +
+# column passes with divide and round 11.5 per coefficient x 1.5
+# coefficients per pixel); histograms and scan pack per coefficient.
+OPS_PHASE1_PER_PIXEL = 41
+OPS_HIST_PER_COEFF = 10
+OPS_PACK_PER_COEFF = 30
 
 
 def log(msg: str) -> None:
@@ -72,8 +95,36 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall time of fn() in ms over `reps` runs after two warm
+    runs, which also fill encode_batch's staging ring (fn returns host
+    results, so each run ends synchronized)."""
+    fn()
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def max_abs_err(torch, a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for work that must move n_bytes
+    and do n_ops."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_OPS_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pack_bytes(n_blocks: int, n_images: int, total_bits) -> int:
+    """Bytes a scan pack must move: each block read once, each image's four
+    tables read once, the stream's words and the bit count written once."""
+    words = sum((int(b) + 31) // 32 for b in total_bits)
+    return n_blocks * 128 + n_images * (2 * 4 * 256 * 4 + 8) + words * 4
 
 
 def main() -> int:
@@ -85,8 +136,16 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import dmmt_jpeg_encoder_tpu_torch as port
-    from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import interleave_scan, pack_scan_plain
-    from dmmt_jpeg_encoder_tpu_torch.bitstream.fused_pack import fused_pack_words
+    from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import (
+        interleave_scan,
+        pack_scan_plain,
+        pack_scan_slab_plain,
+    )
+    from dmmt_jpeg_encoder_tpu_torch.bitstream.fused_pack import (
+        fused_pack_words,
+        fused_pack_words_slab,
+    )
+    from dmmt_jpeg_encoder_tpu_torch.encoder import slab_depth
     from dmmt_jpeg_encoder_tpu_torch.entropy.categorize import symbol_histograms
     from dmmt_jpeg_encoder_tpu_torch.huffman.device_tables import (
         device_code_tables_batched,
@@ -94,12 +153,22 @@ def main() -> int:
     )
     from dmmt_jpeg_encoder_tpu_torch.io.ppm import write_ppm
     from dmmt_jpeg_encoder_tpu_torch.kernels import build
+    from dmmt_jpeg_encoder_tpu_torch.onedispatch import pack_inputs
     from dmmt_jpeg_encoder_tpu_torch.ops.block_hist import fused_block_histograms
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_arai import fused_arai_phase1
+    from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
     from dmmt_jpeg_encoder_tpu_torch.pipeline import dc_dpcm, phase1_zigzag_blocks
     from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
     from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native
-    from torch_port_fixtures import FIXTURES, fixture_pixels, load_goldens, sha256
+    from torch_port_fixtures import (
+        BATCH_FIXTURES,
+        FIXTURES,
+        batch_frames,
+        fixture_pixels,
+        load_batch_goldens,
+        load_goldens,
+        sha256,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -120,10 +189,22 @@ def main() -> int:
         if sha256(px) != goldens[name]["pixels_sha256"]:
             raise AssertionError(f"{name}: fixture pixels differ from the goldens' (numpy {np.__version__})")
         images[name] = px
+    batch_goldens = load_batch_goldens()
+    batches = {}
+    for name in BATCH_FIXTURES:
+        batches[name] = batch_frames(name)
+        if [sha256(px) for px in batches[name]] != [g["pixels_sha256"]
+                                                     for g in batch_goldens[name]]:
+            raise AssertionError(f"{name}: batch pixels differ from the goldens' "
+                                 f"(numpy {np.__version__})")
+
+    def config_of(f):
+        return port.EncoderConfig(chroma_subsampling=port.ChromaSubsamplingPreset(f["preset"]),
+                                  quality=f["quality"])
 
     # --- 3. kernel vs plain ------------------------------------------------
     errs = {k: 0 for k in KERNEL_INFO}
-    timing = {}
+    timing, bounds = {}, {}
     for name, f in FIXTURES.items():
         preset = port.ChromaSubsamplingPreset(f["preset"])
         lq, cq = (torch.from_numpy(t).to(dev) for t in quantization_table_pair(
@@ -185,27 +266,126 @@ def main() -> int:
             for kname, kf, pf in (("phase1", k1, p1), ("block_hist", k2, p2), ("scan_pack", k3, p3)):
                 timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms")
+            n_blocks, n_px = int(scan.shape[0]), rgb.numel() // 3
+            coeff_bytes = n_blocks * 128
+            bounds["phase1"] = bound(rgb.numel() * rgb.element_size() + coeff_bytes + 2 * 64 * 4,
+                                     n_px * OPS_PHASE1_PER_PIXEL)
+            bounds["block_hist"] = bound(coeff_bytes + 2 * 272 * 4,
+                                         n_blocks * 64 * OPS_HIST_PER_COEFF)
+            bounds["scan_pack"] = bound(pack_bytes(n_blocks, 1, wk[1].tolist()),
+                                        n_blocks * 64 * OPS_PACK_PER_COEFF)
+
+    # the slab scan pack: against its plain version and one scan-pack call per image
+    for name in ("batch_odd_p422", "batch_1080p_p420"):
+        f = BATCH_FIXTURES[name]
+        preset = port.ChromaSubsamplingPreset(f["preset"])
+        lq, cq = (torch.from_numpy(t).to(dev) for t in quantization_table_pair(
+            port.QuantizationTablePreset.SPECIFICATION, f["quality"]))
+        b = f["n"]
+        ph, pw = padded_size(f["height"], f["width"], preset)
+        stack = np.zeros((b, ph, pw, 3), np.uint8)
+        stack[:, : f["height"], : f["width"]] = np.stack(batches[name])
+        rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
+        scans, tables, _ = pack_inputs(rgb, b, f["maxval"], preset, lq, cq)
+        lpm = preset.luma_blocks_per_mcu
+        n_words = int(scans.shape[1]) * 64 + 2
+        codes = tables["codes_flat"].reshape(b, 4, 256)
+        lens = tables["lens_flat"].reshape(b, 4, 256)
+
+        def k4():
+            return fused_pack_words_slab(scans, lpm + 2, lpm, codes, lens, n_words)
+
+        def p4():
+            return pack_scan_slab_plain(scans, lpm + 2, lpm, codes, lens, n_words)
+
+        def k3_each():
+            return [fused_pack_words(scans[i], lpm + 2, lpm, codes[i], lens[i], n_words)
+                    for i in range(b)]
+
+        wk, wp, singles = k4(), p4(), k3_each()
+        each = (torch.stack([w for w, _ in singles]), torch.cat([t for _, t in singles]))
+        for ref, what in ((wp, "plain"), (each, f"{b} scan_pack calls")):
+            for x, y in zip(wk, ref):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: scan_pack_slab kernel != {what}")
+                errs["scan_pack_slab"] = max(errs["scan_pack_slab"], max_abs_err(torch, x, y))
+        log(f"{name}: scan_pack_slab == plain == {b} scan_pack calls "
+            f"({b} x {int(scans.shape[1])} blocks, bits {wk[1].tolist()})")
+        if name == "batch_1080p_p420":
+            t_k4, t_plain, t_each = cuda_ms(torch, k4), cuda_ms(torch, p4), cuda_ms(torch, k3_each)
+            timing["scan_pack_slab"] = (t_k4, t_plain)
+            n_blocks = b * int(scans.shape[1])
+            bounds["scan_pack_slab"] = bound(pack_bytes(n_blocks, b, wk[1].tolist()),
+                                             n_blocks * 64 * OPS_PACK_PER_COEFF)
+            log(f"1080p x {b} scan_pack_slab: kernel {t_k4:.4f} ms, {b} scan_pack calls "
+                f"{t_each:.4f} ms, plain {t_plain:.4f} ms, "
+                f"bound {bounds['scan_pack_slab'][0]:.4f} ms")
 
     # --- 4. end to end -----------------------------------------------------
-    configs = {
-        name: port.EncoderConfig(
-            chroma_subsampling=port.ChromaSubsamplingPreset(f["preset"]), quality=f["quality"])
-        for name, f in FIXTURES.items()
-    }
-    build.reset_launch_counts()
-    outputs = {
+    launches = {k: 0 for k in KERNEL_INFO}
+
+    def run_path(label, fn, expect):
+        """Drive one path with the counts reset just before and read just
+        after; `expect` maps kernel -> required count (None: at least one)."""
+        build.reset_launch_counts()
+        result = fn()
+        counts = build.launch_counts()
+        log(f"{label} launches: {counts}")
+        for k, want in expect.items():
+            if (counts[k] == 0) if want is None else (counts[k] != want):
+                raise AssertionError(f"{label}: {k} launched {counts[k]} times, expected "
+                                     f"{'at least one' if want is None else want}")
+        for k, n in counts.items():
+            launches[k] += n
+        return result
+
+    configs = {name: config_of(f) for name, f in FIXTURES.items()}
+    outputs = run_path("single-image fixtures", lambda: {
         name: port.encode_array(images[name], f["maxval"], configs[name], device=dev)
         for name, f in FIXTURES.items()
-    }
-    launches = build.launch_counts()
-    log(f"main-path launches: {launches}")
+    }, {"phase1": None, "block_hist": None, "scan_pack": None, "scan_pack_slab": 0})
     for name, jpeg in outputs.items():
         if sha256(jpeg) != goldens[name]["jpeg_sha256"] or len(jpeg) != goldens[name]["jpeg_len"]:
             raise AssertionError(f"{name}: cuda JPEG differs from the JAX golden ({len(jpeg)} bytes)")
         log(f"{name}: cuda bytes == JAX golden ({len(jpeg)} bytes)")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    arms = {"slab": {"DMMT_SLAB_ONEPACK": "0"}, "slab_onepack": {"DMMT_SLAB_ONEPACK": "1"},
+            "per_image": {"DMMT_SLAB": "0"}}
+    for name in ("batch_1080p_p420", "batch_4k_p420"):
+        f, frames = BATCH_FIXTURES[name], batches[name]
+        cfg = config_of(f)
+        mpix = f["n"] * f["height"] * f["width"] / 1e6
+        want = [g["jpeg_sha256"] for g in batch_goldens[name]]
+        rates = {}
+        for arm, env in arms.items():
+            saved = {k: os.environ.get(k) for k in ("DMMT_SLAB", "DMMT_SLAB_ONEPACK")}
+            os.environ.update(env)
+            try:
+                depth = slab_depth(frames, cfg)
+                groups = -(-f["n"] // depth)
+                if (depth > 1) != (arm != "per_image"):
+                    raise AssertionError(f"{name} {arm}: the gate chose depth {depth}")
+                expect = {"phase1": groups if depth > 1 else f["n"], "block_hist": 2 * f["n"],
+                          "scan_pack": 0 if arm == "slab_onepack" else f["n"],
+                          "scan_pack_slab": groups if arm == "slab_onepack" else 0}
+
+                def batch():
+                    return port.encode_batch(frames, f["maxval"], cfg, device=dev)
+
+                out = run_path(f"{name} {arm} (depth {depth})", batch, expect)
+                if [sha256(j) for j in out] != want:
+                    raise AssertionError(f"{name} {arm}: cuda JPEGs differ from the JAX goldens")
+                rates[arm] = mpix / wall_ms(batch) * 1e3
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        rates["encode_array_loop"] = mpix / wall_ms(lambda: [
+            port.encode_array(px, f["maxval"], cfg, device=dev) for px in frames]) * 1e3
+        log(f"{name}: every frame == JAX golden under all three arms; throughput Mpix/s "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f" on {gpu}")
 
     if load_native() is None:
         raise AssertionError("native PPM parser did not build (cc); the 4K CLI run needs it")
@@ -235,7 +415,8 @@ def main() -> int:
 
     kernels = [
         {"name": k, "route": "cuda", "source": source, "replaces": rep, "launches": launches[k],
-         "max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
+         "max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
         for k, (source, rep) in KERNEL_INFO.items()
     ]
     print(gpu)

@@ -13,6 +13,9 @@ Counterpart of dmmt_jpeg_encoder_tpu.bitstream.device_pack:
   and bit ranges are disjoint, so adding is OR-ing. The arithmetic is
   int64 with `& 0xFFFFFFFF` where the JAX package relied on uint32
   wraparound.
+- `pack_scan_slab_plain`: the slab scan-pack kernel's plain version, B
+  streams of a row-stacked slab, each packed on its own (the semantics of
+  the JAX package's onedispatch._tables_to_pack_slab).
 - `finalize_scan_bytes` / `exact_scan_bits`: host numpy, unchanged.
 
 Table lookups assume every symbol present in the data has a codeword,
@@ -203,6 +206,26 @@ def pack_scan_plain(
     values, lens, offs, block_bits = block_emissions(scan, table_idx, dc_comb, ac_comb)
     words, total_bits = pack_to_words(values, lens, offs, block_bits, n_words)
     return byteswap_words(words), total_bits.reshape(1)
+
+
+def pack_scan_slab_plain(
+    scans: torch.Tensor,
+    stride: int,
+    luma_per_mcu: int,
+    codes: torch.Tensor,
+    lens: torch.Tensor,
+    n_words: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slab scan-pack kernel's plain version: B independent streams,
+    each packed exactly as pack_scan_plain packs it alone. scans [B, N, 64]
+    (one image's scan-order blocks each), codes/lens [B, 4, 256] (each
+    image's own tables), n_words per image -> (words int32 [B, n_words],
+    total_bits int64 [B])."""
+    packs = [
+        pack_scan_plain(scans[i], stride, luma_per_mcu, codes[i], lens[i], n_words)
+        for i in range(scans.shape[0])
+    ]
+    return torch.stack([w for w, _ in packs]), torch.cat([b for _, b in packs])
 
 
 def finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:

@@ -1,12 +1,14 @@
-"""Scan-pack kernel wrapper: scan-order blocks -> packed bitstream words.
+"""Scan-pack kernel wrappers: scan-order blocks -> packed bitstream words.
 
 Counterpart of dmmt_jpeg_encoder_tpu.bitstream.fused_pack
-(`fused_pack_words`). The CUDA kernel is csrc/scan_pack.cu (three
-launches: block bit lengths, a device-wide exclusive scan of the block
-offsets, emission with atomicOr). Its plain version is
-device_pack.pack_scan_plain (block_emissions + pack_to_words +
-byteswap_words). The TPU kernel swept compacted present-symbol tables from
-SMEM; here the four flat (code, length) tables sit whole in shared memory.
+(`fused_pack_words`, `fused_pack_words_slab`). The CUDA kernel is
+csrc/scan_pack.cu (three launches: block bit lengths, a device-wide
+exclusive scan of the block offsets, emission with atomicOr); its slab
+entry point runs the same launches over B images at once. The plain
+versions are device_pack.pack_scan_plain (block_emissions + pack_to_words
++ byteswap_words) and device_pack.pack_scan_slab_plain. The TPU kernel
+swept compacted present-symbol tables from SMEM; here the four flat
+(code, length) tables sit whole in shared memory.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .device_pack import pack_scan_plain
+from .device_pack import pack_scan_plain, pack_scan_slab_plain
 
 CHUNK = 256  # blocks per CTA in csrc/scan_pack.cu
 
@@ -65,4 +67,52 @@ def fused_pack_words(
     )
     build.check(err, "dmmt_scan_pack")
     build.LAUNCHES["scan_pack"] += 1
+    return words, total_bits
+
+
+def fused_pack_words_slab(
+    scans: torch.Tensor,
+    stride: int,
+    luma_per_mcu: int,
+    codes: torch.Tensor,
+    lens: torch.Tensor,
+    n_words: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B independent streams in one kernel call: int16 [B, N, 64] scans
+    (each image's blocks, DC DPCM'd per image) + int32 [B, 4, 256] per-image
+    tables -> (words int32 [B, n_words], total_bits int64 [B]). Image b's
+    row equals fused_pack_words on its own scan and tables. n_words is per
+    image and must cover the worst case, N * 64 + 2."""
+    if scans.ndim != 3 or scans.shape[2] != 64 or scans.shape[0] == 0 or scans.shape[1] == 0:
+        raise ValueError(f"expected [B, N, 64] scans, got {tuple(scans.shape)}")
+    b, n = int(scans.shape[0]), int(scans.shape[1])
+    if n_words < n * 64 + 2:
+        raise ValueError(f"n_words {n_words} below the worst case {n * 64 + 2}")
+    if codes.shape != (b, 4, 256) or lens.shape != (b, 4, 256):
+        raise ValueError(f"expected [{b}, 4, 256] code and length tables")
+    if scans.device.type == "cpu":
+        return pack_scan_slab_plain(scans, stride, luma_per_mcu, codes, lens, n_words)
+    if scans.device.type != "cuda":
+        raise ValueError(f"slab scan-pack kernel needs a CUDA tensor, got {scans.device}")
+    if scans.dtype != torch.int16:
+        raise ValueError(f"expected int16 scans, got {scans.dtype}")
+    dev = scans.device
+    scans = scans.contiguous()
+    codes = codes.to(device=dev, dtype=torch.int32).contiguous()
+    lens = lens.to(device=dev, dtype=torch.int32).contiguous()
+    n_chunks = -(-n // CHUNK)
+    words = torch.zeros((b, n_words), dtype=torch.int32, device=dev)
+    block_bits = torch.empty((b, n), dtype=torch.int32, device=dev)
+    chunk_sums = torch.empty((b, n_chunks), dtype=torch.int64, device=dev)
+    chunk_base = torch.empty((b, n_chunks), dtype=torch.int64, device=dev)
+    total_bits = torch.empty(b, dtype=torch.int64, device=dev)
+    lib = build.load()
+    err = lib.dmmt_scan_pack_slab(
+        scans.data_ptr(), b, n, stride, luma_per_mcu, codes.data_ptr(), lens.data_ptr(),
+        block_bits.data_ptr(), chunk_sums.data_ptr(), chunk_base.data_ptr(),
+        words.data_ptr(), n_words, total_bits.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "dmmt_scan_pack_slab")
+    build.LAUNCHES["scan_pack_slab"] += 1
     return words, total_bits

@@ -26,6 +26,18 @@
 //      ranges, so OR is exact; byte order commutes with OR, so each piece
 //      is byte-swapped (__byte_perm) and OR-ed straight into memory order.
 // Offsets are int64, so the stream may exceed 2^31 bits.
+//
+// Also replaces: dmmt_jpeg_encoder_tpu/bitstream/fused_pack.py :
+// fused_pack_words_slab, B independent streams (one per image of a
+// row-stacked slab) in one call, dmmt_scan_pack_slab. The three launches
+// gain an image axis (gridDim.y in launches 1 and 3, one scan CTA per
+// image in launch 2): image b reads its own [N, 64] blocks and its own four
+// tables, and writes its own zeroed n_words region and total bit count, so
+// each image's words equal a standalone dmmt_scan_pack bit for bit.
+// dmmt_scan_pack is the case B = 1. The TPU kernel padded each image to
+// whole grid tiles and staged compacted tables in SMEM; here a CTA simply
+// never spans two images. Bound: the same bytes per block as above, B
+// times; the 8 KB of tables are read once per CTA from L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,7 +154,11 @@ bits_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
             int* __restrict__ block_bits, long long* __restrict__ chunk_sums) {
     __shared__ Tables t;
     __shared__ long long s_warp[WARPS];
-    load_tables(t, codes, lens);
+    const long long img = blockIdx.y;  // image of a slab (0 for one stream)
+    scan += img * n * 64;
+    block_bits += img * n;
+    chunk_sums += img * gridDim.x;
+    load_tables(t, codes + img * 1024, lens + img * 1024);
     __syncthreads();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     long long sum = 0;
@@ -174,6 +190,9 @@ chunk_scan_kernel(const long long* __restrict__ chunk_sums, long long n_chunks,
                   long long* __restrict__ chunk_base, long long* __restrict__ total_bits) {
     __shared__ long long s_warp[SCAN_THREADS / 32];
     __shared__ long long s_carry;
+    const long long img = blockIdx.x;  // one CTA per image
+    chunk_sums += img * n_chunks;
+    chunk_base += img * n_chunks;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     if (tid == 0) s_carry = 0;
     __syncthreads();
@@ -204,7 +223,7 @@ chunk_scan_kernel(const long long* __restrict__ chunk_sums, long long n_chunks,
         if (tid == 0) s_carry += s_warp[SCAN_THREADS / 32 - 1];
         __syncthreads();
     }
-    if (tid == 0) total_bits[0] = s_carry;
+    if (tid == 0) total_bits[img] = s_carry;
 }
 
 // ---- launch 3: place every emission ----------------------------------------
@@ -216,7 +235,12 @@ emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
     __shared__ Tables t;
     __shared__ long long s_off[CHUNK];   // exclusive bit offset of each block in the chunk
     __shared__ long long s_warp[WARPS];
-    load_tables(t, codes, lens);
+    const long long img = blockIdx.y;
+    scan += img * n * 64;
+    block_bits += img * n;
+    chunk_base += img * gridDim.x;
+    words += img * n_words;
+    load_tables(t, codes + img * 1024, lens + img * 1024);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long b0 = static_cast<long long>(blockIdx.x) * CHUNK;
 
@@ -276,6 +300,31 @@ emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
 
 }  // namespace
 
+namespace {
+
+cudaError_t launch_pack(const short* scan, int n_images, long long n_blocks, int stride, int lpm,
+                        const int* codes, const int* lens, int* block_bits,
+                        long long* chunk_sums, long long* chunk_base, unsigned* words,
+                        long long n_words, long long* total_bits, cudaStream_t s) {
+    if (n_images < 1 || n_images > 65535 || n_blocks < 1 || stride < 1 || lpm < 1 || lpm > stride)
+        return cudaErrorInvalidValue;
+    const long long n_chunks = (n_blocks + CHUNK - 1) / CHUNK;
+    const dim3 grid(static_cast<unsigned>(n_chunks), static_cast<unsigned>(n_images));
+    bits_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, block_bits,
+                                         chunk_sums);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    chunk_scan_kernel<<<n_images, SCAN_THREADS, 0, s>>>(chunk_sums, n_chunks, chunk_base,
+                                                        total_bits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    emit_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, block_bits,
+                                         chunk_base, words, n_words);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
 // scan: int16 [n_blocks, 64] in scan order; codes/lens: int32 [4, 256];
 // block_bits: int32 scratch [n_blocks]; chunk_sums, chunk_base: int64 scratch
 // [ceil(n_blocks / 256)]; words: uint32 [n_words], zeroed; total_bits: int64 [1].
@@ -283,18 +332,21 @@ extern "C" int dmmt_scan_pack(const short* scan, long long n_blocks, int stride,
                               const int* codes, const int* lens, int* block_bits,
                               long long* chunk_sums, long long* chunk_base, unsigned* words,
                               long long n_words, long long* total_bits, void* stream) {
-    if (n_blocks < 1 || stride < 1 || lpm < 1 || lpm > stride)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long long n_chunks = (n_blocks + CHUNK - 1) / CHUNK;
-    bits_kernel<<<static_cast<unsigned>(n_chunks), THREADS, 0, s>>>(
-        scan, n_blocks, stride, lpm, codes, lens, block_bits, chunk_sums);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    chunk_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(chunk_sums, n_chunks, chunk_base, total_bits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    emit_kernel<<<static_cast<unsigned>(n_chunks), THREADS, 0, s>>>(
-        scan, n_blocks, stride, lpm, codes, lens, block_bits, chunk_base, words, n_words);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_pack(scan, 1, n_blocks, stride, lpm, codes, lens, block_bits,
+                                        chunk_sums, chunk_base, words, n_words, total_bits,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+// The slab form: scan int16 [n_images, n_blocks, 64]; codes/lens int32
+// [n_images, 4, 256]; block_bits int32 [n_images, n_blocks]; chunk_sums,
+// chunk_base int64 [n_images, ceil(n_blocks / 256)]; words uint32
+// [n_images, n_words], zeroed (n_words per image); total_bits int64 [n_images].
+extern "C" int dmmt_scan_pack_slab(const short* scan, int n_images, long long n_blocks,
+                                   int stride, int lpm, const int* codes, const int* lens,
+                                   int* block_bits, long long* chunk_sums, long long* chunk_base,
+                                   unsigned* words, long long n_words, long long* total_bits,
+                                   void* stream) {
+    return static_cast<int>(launch_pack(scan, n_images, n_blocks, stride, lpm, codes, lens,
+                                        block_bits, chunk_sums, chunk_base, words, n_words,
+                                        total_bits, static_cast<cudaStream_t>(stream)));
 }

@@ -44,7 +44,7 @@ def device_code_tables_batched(hists: torch.Tensor) -> dict[str, torch.Tensor]:
     freq = hists.to(i32)
     present = freq > 0
     n = present.sum(dim=1, dtype=i32)
-    inf = torch.tensor(INF, dtype=i32, device=dev)
+    inf = torch.full((), INF, dtype=i32, device=dev)  # a fill, not a blocking upload
 
     key = torch.where(present, freq, inf)
     sorted_freq, order = torch.sort(key, dim=1, stable=True)

@@ -22,6 +22,7 @@ from ..ops.color import CB_WEIGHTS, CR_WEIGHTS, LEVEL_SHIFT, SCALE, Y_WEIGHTS
 from ..ops.dct import A1, A2, A3, A4, A5, S
 from ..ops.geometry import padded_size
 from ..pipeline import phase1_zigzag_blocks
+from ..utils.device import device_constant
 
 
 def kernel_constants() -> np.ndarray:
@@ -59,7 +60,7 @@ def fused_arai_phase1(
     out_y = torch.empty((n_mcu * hr * vr, 64), dtype=torch.int16, device=dev)
     out_cb = torch.empty((n_mcu, 64), dtype=torch.int16, device=dev)
     out_cr = torch.empty((n_mcu, 64), dtype=torch.int16, device=dev)
-    consts = torch.from_numpy(kernel_constants()).to(dev)
+    consts = device_constant(kernel_constants(), dev)
     qy = luma_q.to(device=dev, dtype=torch.float32).contiguous()
     qc = chroma_q.to(device=dev, dtype=torch.float32).contiguous()
     lib = build.load()

@@ -84,10 +84,18 @@ def phase1_zigzag_blocks(
 
 def dc_dpcm(blocks: torch.Tensor) -> torch.Tensor:
     """Replace column 0 (DC) of [N, 64] blocks with its delta chain; the
-    predictor starts at 0 (categorize.rs:156-161). Computed in int32, then
-    cast back."""
-    dc = blocks[:, 0].to(torch.int32)
-    prev = torch.cat([torch.zeros(1, dtype=torch.int32, device=dc.device), dc[:-1]])
+    predictor starts at 0 (categorize.rs:156-161)."""
+    return dc_dpcm_per_image(blocks, 1)
+
+
+def dc_dpcm_per_image(blocks: torch.Tensor, n_images: int) -> torch.Tensor:
+    """dc_dpcm with chains that RESET at image boundaries: the block axis of
+    a row-stacked slab is the concatenation of n_images equal-length
+    per-image sequences, and each image's chain starts from predictor 0 as
+    a standalone encode's does (pipeline.dc_dpcm_per_image of the JAX
+    package). Computed in int32, then cast back."""
+    dc = blocks[:, 0].to(torch.int32).reshape(n_images, -1)
+    prev = torch.nn.functional.pad(dc[:, :-1], (1, 0))
     out = blocks.clone()
-    out[:, 0] = (dc - prev).to(blocks.dtype)
+    out[:, 0] = (dc - prev).reshape(-1).to(blocks.dtype)
     return out

@@ -1,8 +1,8 @@
 """Build-and-load for the native C PPM parser.
 
-The C source is the JAX package's own `bitstream/csrc/ppm_parse.c`, built
-by path (reading a C file imports nothing, so the port shares it instead of
-duplicating it). It is compiled once on first use with `cc` into the
+The C source is the port's own `csrc/ppm_parse.c`, a copy of the JAX
+package's `bitstream/csrc/ppm_parse.c`: the port reads no file of the JAX
+package. It is compiled once on first use with `cc` into the
 repository's `build/native/` directory (listed in .gitignore), keyed by a
 hash of the source and flags. It is built without -march=native, so a
 build directory copied to another machine still loads. The pure-Python
@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 _REPO = Path(__file__).resolve().parents[2]
-PPM_SOURCE = _REPO / "dmmt_jpeg_encoder_tpu" / "bitstream" / "csrc" / "ppm_parse.c"
+PPM_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ppm_parse.c"
 BUILD_DIR = _REPO / "build" / "native"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

@@ -166,6 +166,9 @@ def test_port_imports_no_jax():
         "px = np.arange(16 * 24 * 3, dtype=np.uint8).reshape(16, 24, 3)\n"
         "jpeg = p.encode_array(px, 255, device='cpu')\n"
         "assert jpeg[:2] == b'\\xff\\xd8' and jpeg[-2:] == b'\\xff\\xd9'\n"
+        "assert p.encode_batch([px, px[::-1].copy(), px], 255, device='cpu')[::2] == [jpeg, jpeg]\n"
+        "from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native\n"
+        "assert load_native() is not None\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
         " or m == 'dmmt_jpeg_encoder_tpu']\n"
         "assert not bad, bad\n"
@@ -176,13 +179,49 @@ def test_port_imports_no_jax():
 
 
 def test_nvcc_command_line():
-    cmd = build.nvcc_command(build.sources(), Path("out.so"))
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "--fmad=false" in cmd and "-prec-div=true" in cmd
-    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
-    assert [Path(s).name for s in cmd[-3:]] == ["block_hist.cu", "phase1.cu", "scan_pack.cu"]
+    assert [s.name for s in build.sources()] == ["block_hist.cu", "phase1.cu", "scan_pack.cu"]
+    for src in build.sources():
+        cmd = build.compile_command(src, Path("x.o"))
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined and "-c" in cmd
+        assert "--fmad=false" in cmd and "-prec-div=true" in cmd
+        assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
+        assert cmd[-1] == str(src)
+    link = build.link_command([Path("a.o"), Path("b.o")], Path("out.so"))
+    assert "-shared" in link and link[-2:] == ["a.o", "b.o"]
     assert build.library_path().parent == build.BUILD_DIR
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """The port keeps its own copies of what it needs: no module imports
+    the JAX package, and no code names a path inside it (docstrings and
+    comments may cite it)."""
+    import ast
+
+    from dmmt_jpeg_encoder_tpu_torch.utils import native
+
+    port = REPO / "dmmt_jpeg_encoder_tpu_torch"
+    assert native.PPM_SOURCE.is_file() and port in native.PPM_SOURCE.parents
+    for path in port.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docstrings = {
+            id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and node.body
+            and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)
+        }
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docstrings:
+                names = [node.value] if "dmmt_jpeg_encoder_tpu" in node.value else []
+            else:
+                continue
+            bad = [n for n in names if n.split(".")[0] == "dmmt_jpeg_encoder_tpu"
+                   or "dmmt_jpeg_encoder_tpu/" in n]
+            assert not bad, f"{path.relative_to(REPO)}: {bad}"
 
 
 def test_goldens_file_covers_fixtures():

@@ -5,7 +5,9 @@ and integer gradients, no floating point), so every machine builds the
 same bytes. `torch_port_goldens.json` holds, per fixture, the sha256 of
 the pixels and of the JAX package's `encode_array` bytes on the CPU: the
 machine with the GPU has no JAX, so the port's output there is held
-against these digests.
+against these digests. Batch fixtures (`BATCH_FIXTURES`, under the key
+"batches") hold the same per frame; frame i of a batch is built from the
+batch's seed + i, so every frame differs.
 
 Regenerate the goldens (needs the JAX package) with
 
@@ -33,13 +35,31 @@ FIXTURES: dict[str, dict] = {
 }
 SMALL_FIXTURES = [name for name in FIXTURES if name != "4k_p420"]
 
+# name -> n frames of one geometry, sample range, preset and quality
+BATCH_FIXTURES: dict[str, dict] = {
+    "batch_1080p_p420": dict(n=16, height=1080, width=1920, maxval=255, preset="P420",
+                             quality=None, seed=100),
+    "batch_4k_p420": dict(n=4, height=2160, width=3840, maxval=255, preset="P420",
+                          quality=None, seed=200),
+    "batch_odd_p422": dict(n=3, height=45, width=71, maxval=255, preset="P422",
+                           quality=90, seed=300),
+}
+
 
 def fixture_pixels(name: str) -> np.ndarray:
+    f = FIXTURES[name]
+    return _pixels(f["height"], f["width"], f["maxval"], f["seed"])
+
+
+def batch_frames(name: str) -> list[np.ndarray]:
+    f = BATCH_FIXTURES[name]
+    return [_pixels(f["height"], f["width"], f["maxval"], f["seed"] + i) for i in range(f["n"])]
+
+
+def _pixels(h: int, w: int, maxval: int, seed: int) -> np.ndarray:
     """RGB [H, W, 3] samples: a ramp, hard-edged tiles and a sawtooth
     texture, plus per-channel noise; uint8, or uint16 when maxval > 255."""
-    f = FIXTURES[name]
-    h, w, maxval = f["height"], f["width"], f["maxval"]
-    rng = np.random.default_rng(f["seed"])
+    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.int64)
     ramp = 40 + (xx * 150) // max(w - 1, 1) + (yy * 50) // max(h - 1, 1)
     tiles = ((xx // 53 + yy // 31) % 3) * 12
@@ -81,30 +101,38 @@ def load_goldens() -> dict:
     return json.loads(GOLDENS_PATH.read_text())["fixtures"]
 
 
-def jax_jpeg(name: str) -> bytes:
-    """The JAX package's encode of a fixture (imports JAX)."""
+def load_batch_goldens() -> dict:
+    return json.loads(GOLDENS_PATH.read_text())["batches"]
+
+
+def _jax_encode(pixels: np.ndarray, f: dict) -> bytes:
+    """The JAX package's encode_array (imports JAX)."""
     import dmmt_jpeg_encoder_tpu as dj
 
-    f = FIXTURES[name]
     config = dj.EncoderConfig(
         chroma_subsampling=dj.ChromaSubsamplingPreset(f["preset"]), quality=f["quality"]
     )
-    return dj.encode_array(fixture_pixels(name), f["maxval"], config)
+    return dj.encode_array(pixels, f["maxval"], config)
+
+
+def _entry(pixels: np.ndarray, jpeg: bytes) -> dict:
+    return {"pixels_sha256": sha256(pixels), "jpeg_sha256": sha256(jpeg), "jpeg_len": len(jpeg)}
 
 
 def golden_entry(name: str) -> dict:
-    jpeg = jax_jpeg(name)
-    return {
-        "pixels_sha256": sha256(fixture_pixels(name)),
-        "jpeg_sha256": sha256(jpeg),
-        "jpeg_len": len(jpeg),
-    }
+    return _entry(fixture_pixels(name), _jax_encode(fixture_pixels(name), FIXTURES[name]))
+
+
+def batch_golden_entry(name: str) -> list[dict]:
+    f = BATCH_FIXTURES[name]
+    return [_entry(px, _jax_encode(px, f)) for px in batch_frames(name)]
 
 
 def write_goldens() -> None:
     out = {
         "source": "dmmt_jpeg_encoder_tpu.encode_array on the JAX CPU backend",
         "fixtures": {name: golden_entry(name) for name in FIXTURES},
+        "batches": {name: batch_golden_entry(name) for name in BATCH_FIXTURES},
     }
     GOLDENS_PATH.write_text(json.dumps(out, indent=1) + "\n")
 
