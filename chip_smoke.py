@@ -21,7 +21,14 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    exactly, and the times of all three on the 1080p group; the grouped
    histogram, grouped lookup and emission pack with per-image word-aligned
    stream bases on the 1080p x 16 fused batch, against their plain
-   versions, exactly, with their times;
+   versions, exactly, with their times; on every fixture, the four kernels
+   of the phase-1 routes (the plane DCT of DMMT_P1=pallas, the matmul
+   plane DCT of DMMT_P1=mxu and the SIMPLE and SEPARATED variants, the
+   fused matmul phase 1 of DMMT_P1=fused1, the block DCT of the FUSED
+   variant) on the inputs those routes give them, against their plain
+   versions, exactly, with kernel, plain and library times at 4K, and the
+   color planes those routes make in plain torch against the same on the
+   CPU;
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -34,8 +41,13 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    JAX package's CPU goldens (tests/torch_port_goldens.json); each path's
    kernels must have launched as often as the path launches them; batch
    throughput of each arm beside an encode_array loop; the 4K frame also
-   through the CLI, one-dispatch and --one-dispatch off; warm 4K encode
-   time, one-dispatch and two-dispatch.
+   through the CLI, one-dispatch and --one-dispatch off; then every
+   phase-1 route (DMMT_P1=pallas, mxu, fused1; the SIMPLE, SEPARATED and
+   FUSED variants) on every single-image fixture, one-dispatch and
+   two-dispatch, and the 16 x 1080p batch as slab and fused_batch=16 under
+   DMMT_P1=mxu and FUSED, each held against the route's goldens with the
+   route's kernels counted; warm 4K encode time, one-dispatch and
+   two-dispatch, and one-dispatch under each route.
 
 The last three lines are the nvidia-smi line, a JSON object with one entry
 per kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
@@ -75,7 +87,26 @@ KERNEL_INFO = {
                        "dmmt_jpeg_encoder_tpu/bitstream/pallas_pack.py:174, "
                        "dmmt_jpeg_encoder_tpu/bitstream/pallas_pack.py:208"),
 }
+KERNEL_INFO.update({
+    "plane_dct": ("dmmt_jpeg_encoder_tpu_torch/csrc/plane_dct.cu",
+                  "dmmt_jpeg_encoder_tpu/ops/pallas_dct.py:92"),
+    "plane_dct_mm": ("dmmt_jpeg_encoder_tpu_torch/csrc/mxu_dct.cu",
+                     "dmmt_jpeg_encoder_tpu/ops/mxu_dct.py:162"),
+    "phase1_mm": ("dmmt_jpeg_encoder_tpu_torch/csrc/fused_phase1.cu",
+                  "dmmt_jpeg_encoder_tpu/ops/fused_phase1.py:238"),
+    "block_dct_zz": ("dmmt_jpeg_encoder_tpu_torch/csrc/block_dct.cu",
+                     "dmmt_jpeg_encoder_tpu/ops/fused.py:102"),
+})
 NEW_KERNELS = ("histogram", "table_lookup", "pack_emissions")
+DCT_KERNELS = ("plane_dct", "plane_dct_mm", "phase1_mm", "block_dct_zz")
+# each phase-1 route's kernel launches per image, slab group or fused chunk
+# (the plane kernels: luma, then Cb and Cr stacked; the block kernel: luma,
+# Cb, Cr)
+ROUTE_LAUNCHES = {
+    "p1_pallas": {"plane_dct": 2}, "p1_mxu": {"plane_dct_mm": 2}, "p1_fused1": {"phase1_mm": 1},
+    "dct_simple": {"plane_dct_mm": 2}, "dct_separated": {"plane_dct_mm": 2},
+    "dct_fused": {"block_dct_zz": 3},
+}
 # Published H100 SXM peaks at a 700 W limit: HBM bytes/s, and float32 (and
 # 32-bit integer) operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -94,6 +125,16 @@ OPS_PACK_PER_COEFF = 30
 OPS_HISTOGRAM_PER_ENTRY = 4
 OPS_LOOKUP_PER_ENTRY = 3
 OPS_EMIT_PER_SLOT = 12
+# the phase-1 route kernels, per coefficient: two Arai passes (54
+# operations per 8 outputs each) + divide + rounding; two 8-term
+# contractions (4 products, 4 fmas, 3 adds: 15 each) + divide + rounding;
+# per pixel of the fused matmul phase 1 (normalize 3, color 17, luma DCT 34
+# and P420 chroma 2 x 34 / 4, subsample 2); per output of the block DCT
+# (64 fmas + rounding)
+OPS_ARAI_PER_COEFF = 18
+OPS_MATMUL_DCT_PER_COEFF = 34
+OPS_PHASE1_MM_PER_PIXEL = 73
+OPS_BLOCK_DCT_PER_COEFF = 131
 
 
 def log(msg: str) -> None:
@@ -288,6 +329,64 @@ def new_kernel_bounds(hist_calls, lookup_calls, emissions, n_words) -> dict:
     }
 
 
+def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
+    """The four phase-1 route kernels on one image's inputs as the routes
+    give them: the plane kernels on the luma plane and on the Cb and Cr
+    planes stacked, the fused matmul phase 1 on the pixels, the block
+    kernel on the luma, Cb and Cr blocks. Returns ({kernel: (kernel,
+    plain, library)} callables, {kernel: bound}). The library calls, timed
+    only: one torch.einsum computing the same C X C^T products as the
+    matmul plane kernel (no divide, no rounding) and one torch.matmul by M
+    as the block kernel (no rounding), TF32 off; none for the other two."""
+    from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset
+    from dmmt_jpeg_encoder_tpu_torch.ops.dct import dct_matrix
+    from dmmt_jpeg_encoder_tpu_torch.ops.fused import (
+        fused_dct_quantize_zigzag,
+        fused_matrix,
+        fused_reference,
+    )
+    from dmmt_jpeg_encoder_tpu_torch.ops.fused_phase1 import fused_phase1, fused_phase1_reference
+    from dmmt_jpeg_encoder_tpu_torch.ops.geometry import blockize, entangled_blockize_p420
+    from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import mxu_dct_reference, plane_dct_quant_mxu
+    from dmmt_jpeg_encoder_tpu_torch.ops.pallas_dct import plane_dct_quant
+    from dmmt_jpeg_encoder_tpu_torch.pipeline import plane_dct_quant as arai_plain
+    from dmmt_jpeg_encoder_tpu_torch.pipeline import ycbcr_planes
+
+    dev = rgb.device
+    lq, cq = (torch.from_numpy(q).to(dev) for q in (luma_q, chroma_q))
+    y, cb, cr = ycbcr_planes(rgb, maxval, preset)
+    planes = [(y, lq), (torch.cat([cb, cr]), cq)]
+    luma_blocks = entangled_blockize_p420(y) if preset is ChromaSubsamplingPreset.P420 else blockize(y)
+    blocks = [(b.contiguous(), q) for b, q in ((luma_blocks, luma_q), (blockize(cb), chroma_q),
+                                              (blockize(cr), chroma_q))]
+    mats = [torch.from_numpy(fused_matrix(q)).to(dev) for _, q in blocks]
+    c = torch.from_numpy(dct_matrix()).to(dev)
+    groups = [p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8) for p, _ in planes]
+    cases = {
+        "plane_dct": (lambda: [plane_dct_quant(p, q) for p, q in planes],
+                      lambda: [arai_plain(p, q) for p, q in planes], None),
+        "plane_dct_mm": (lambda: [plane_dct_quant_mxu(p, q) for p, q in planes],
+                         lambda: [mxu_dct_reference(p, q) for p, q in planes],
+                         lambda: [torch.einsum("vy,aybx,ux->avbu", c, x, c) for x in groups]),
+        "phase1_mm": (lambda: fused_phase1(rgb, maxval, lq, cq, preset),
+                      lambda: fused_phase1_reference(rgb, maxval, lq, cq, preset), None),
+        "block_dct_zz": (lambda: [fused_dct_quantize_zigzag(b, q) for b, q in blocks],
+                         lambda: [fused_reference(b, m) for (b, _), m in zip(blocks, mats)],
+                         lambda: [torch.matmul(b.reshape(-1, 64), m) for (b, _), m in zip(blocks, mats)]),
+    }
+    n_plane = sum(p.numel() for p, _ in planes)
+    n_block = sum(b.numel() for b, _ in blocks)
+    n_coeff = y.numel() + cb.numel() + cr.numel()
+    bounds = {
+        "plane_dct": bound(n_plane * 6 + 2 * 64 * 4, n_plane * OPS_ARAI_PER_COEFF),
+        "plane_dct_mm": bound(n_plane * 6 + 3 * 64 * 4, n_plane * OPS_MATMUL_DCT_PER_COEFF),
+        "phase1_mm": bound(rgb.numel() * rgb.element_size() + n_coeff * 2 + 3 * 64 * 4,
+                           rgb.numel() // 3 * OPS_PHASE1_MM_PER_PIXEL),
+        "block_dct_zz": bound(n_block * 6 + 3 * 64 * 64 * 4, n_block * OPS_BLOCK_DCT_PER_COEFF),
+    }
+    return cases, bounds
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -326,16 +425,21 @@ def main() -> int:
         dc_dpcm,
         phase1_zigzag_blocks,
         run_device_pipeline_batch,
+        ycbcr_planes,
     )
     from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
     from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native
     from torch_port_fixtures import (
         BATCH_FIXTURES,
         FIXTURES,
+        ROUTE_BATCHES,
+        ROUTES,
         batch_frames,
         fixture_pixels,
         load_batch_goldens,
         load_goldens,
+        load_route_goldens,
+        route_env,
         sha256,
     )
 
@@ -441,6 +545,18 @@ def main() -> int:
             raise AssertionError(f"{name}: staged pack != scan-pack kernel")
         log(f"{name}: kernels == plain (blocks {int(scan.shape[0])}, bits {bits}; "
             f"{len(lookups)} lookups, staged pack == scan pack)")
+        # the plane and block routes' color and subsample run as plain torch
+        # on the card: their floats must equal the CPU's (which the CPU
+        # tests hold against the JAX package)
+        for a, b in zip(ycbcr_planes(rgb, maxval, preset), ycbcr_planes(rgb.cpu(), maxval, preset)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{name}: ycbcr_planes on the card != on the CPU")
+        tables_np = quantization_table_pair(port.QuantizationTablePreset.SPECIFICATION, f["quality"])
+        dct_cases, dct_bounds = dct_kernel_cases(torch, rgb, maxval, *tables_np, preset)
+        for kname, (kf, pf, _) in dct_cases.items():
+            check_equal(torch, errs, kname, name, kf(), pf())
+        log(f"{name}: phase-1 route kernels == plain ({', '.join(DCT_KERNELS)}); "
+            "route color planes on the card == on the CPU")
 
         if name == "4k_p420":
             cpu = phase1_zigzag_blocks(rgb.cpu(), maxval, lq.cpu(), cq.cpu(), preset)
@@ -457,6 +573,15 @@ def main() -> int:
                 library[kname] = cuda_ms(torch, lf) if lf else None
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms, "
                     f"library {library[kname]}, bound {bounds[kname][0]:.4f} ms")
+            bounds.update(dct_bounds)
+            prep_ms = cuda_ms(torch, lambda: ycbcr_planes(rgb, maxval, preset))
+            log(f"4k ycbcr_planes (color and subsample of the plane and block routes, plain torch "
+                f"before their kernel): {prep_ms:.4f} ms")
+            for kname, (kf, pf, lf) in dct_cases.items():
+                timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
+                library[kname] = cuda_ms(torch, lf) if lf else None
+                log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms, "
+                    f"library {library[kname]}, bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
             n_blocks, n_px = int(scan.shape[0]), rgb.numel() // 3
             coeff_bytes = n_blocks * 128
             bounds["phase1"] = bound(rgb.numel() * rgb.element_size() + coeff_bytes + 2 * 64 * 4,
@@ -477,7 +602,8 @@ def main() -> int:
         stack = np.zeros((b, ph, pw, 3), np.uint8)
         stack[:, : f["height"], : f["width"]] = np.stack(batches[name])
         rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
-        scans, tables, _ = pack_inputs(rgb, b, f["maxval"], preset, lq, cq)
+        scans, tables, _ = pack_inputs(rgb, b, f["maxval"], config_of(f), *quantization_table_pair(
+            port.QuantizationTablePreset.SPECIFICATION, f["quality"]))
         lpm = preset.luma_blocks_per_mcu
         n_words = int(scans.shape[1]) * 64 + 2
         codes = tables["codes_flat"].reshape(b, 4, 256)
@@ -565,7 +691,7 @@ def main() -> int:
                                  f"({len(jpeg)} bytes)")
         log(f"{name} {label}: cuda bytes == JAX golden ({len(jpeg)} bytes)")
 
-    none_new = {k: 0 for k in NEW_KERNELS}
+    none_new = {k: 0 for k in NEW_KERNELS + DCT_KERNELS}
     n_fix = len(FIXTURES)
     configs = {name: config_of(f) for name, f in FIXTURES.items()}
     off = {name: dataclasses.replace(c, one_dispatch="off") for name, c in configs.items()}
@@ -665,7 +791,61 @@ def main() -> int:
             log(f"4k CLI {flags} (process start, PPM parse, build load, encode): {cli_s:.2f} s, "
                 "bytes == JAX golden")
 
+    # the phase-1 routes
+    route_goldens, route_batch_goldens = load_route_goldens()
+    for route, (_, variant) in ROUTES.items():
+        per = {"phase1": 0, **ROUTE_LAUNCHES[route]}
+        rcfgs = {name: dataclasses.replace(c, dct_variant=port.DCTVariant(variant))
+                 for name, c in configs.items()}
+        for label, cfgs, expect in (
+            ("one-dispatch", rcfgs, {"block_hist": None, "scan_pack": None, "scan_pack_slab": 0}),
+            ("one_dispatch=off", {n: dataclasses.replace(c, one_dispatch="off") for n, c in rcfgs.items()},
+             {"block_hist": 2 * n_fix, "scan_pack": n_fix, "scan_pack_slab": 0}),
+        ):
+            expect = {**none_new, **expect, **{k: v * n_fix for k, v in per.items()}}
+            with route_env(route):
+                outputs = run_path(f"{route}: single-image fixtures, {label}", lambda: {
+                    name: port.encode_array(images[name], f["maxval"], cfgs[name], device=dev)
+                    for name, f in FIXTURES.items()
+                }, expect)
+            for name, jpeg in outputs.items():
+                g = route_goldens[route][name]
+                if sha256(jpeg) != g["jpeg_sha256"] or len(jpeg) != g["jpeg_len"]:
+                    raise AssertionError(f"{name} {route} {label}: cuda JPEG differs from the JAX golden")
+            log(f"{route} {label}: every fixture's cuda bytes == JAX golden")
+        for name in ROUTE_BATCHES.get(route, []):
+            f, frames = BATCH_FIXTURES[name], batches[name]
+            cfg = dataclasses.replace(config_of(f), dct_variant=port.DCTVariant(variant))
+            want = [g["jpeg_sha256"] for g in route_batch_goldens[route][name]]
+            with route_env(route):
+                depth = slab_depth(frames, cfg)
+                groups = -(-f["n"] // depth)
+                for label, fb, expect in (
+                    (f"slab (depth {depth})", 0,
+                     {"block_hist": 2 * f["n"], "scan_pack": f["n"], "scan_pack_slab": 0,
+                      **{k: v * groups for k, v in per.items()}}),
+                    (f"fused_batch={f['n']}", f["n"],
+                     {"block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0, "histogram": 4,
+                      "table_lookup": 2, "pack_emissions": 1, **per}),
+                ):
+                    out = run_path(f"{route}: {name} {label}", lambda: port.encode_batch(
+                        frames, f["maxval"], cfg, fused_batch=fb, device=dev), {**none_new, **expect})
+                    if [sha256(j) for j in out] != want:
+                        raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
+                    log(f"{route}: {name} {label}: every frame == JAX golden")
+
     mpix = FIXTURES["4k_p420"]["height"] * FIXTURES["4k_p420"]["width"] / 1e6
+    for route, (_, variant) in ROUTES.items():
+        cfg = dataclasses.replace(cfg4, dct_variant=port.DCTVariant(variant))
+        with route_env(route):
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                port.encode_array(four_k, 255, cfg, device=dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+        e2e_ms = statistics.median(times[1:])
+        log(f"4k e2e encode_array one-dispatch, route {route}: median {e2e_ms:.3f} ms of 5, "
+            f"{mpix / e2e_ms * 1e3:.1f} Mpix/s on {gpu}")
     for label, cfg, reps in (("one-dispatch", cfg4, 10), ("two-dispatch (one_dispatch=off)",
                                                           off["4k_p420"], 10),
                              ("two-dispatch, host scan backend", host4, 3)):

@@ -14,9 +14,9 @@ a mirror of the reference's src/cli.rs:75-115):
 plus `--device` (default cuda), which lets the CPU tests drive the CLI
 with the kernels' plain versions. `--one-dispatch off` and `--scan-backend
 host` take the two-dispatch encode, and `--no-native` its Python host
-packer, as in the JAX CLI. Options outside the ported slice (`--dct` other
-than arai, `--shards` > 1) are parsed as in the JAX CLI and then refused
-with exit code 1, naming the ROADMAP item that would add them.
+packer, and `--dct` selects the DCT variant, as in the JAX CLI. `--shards`
+> 1 (outside the ported slice) is parsed as in the JAX CLI and then
+refused with exit code 1, naming the ROADMAP item that would add it.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--dct", choices=[e.value for e in DCTVariant], default=DCTVariant.ARAI.value,
-        help="DCT implementation (default: arai; the only one ported)",
+        help="DCT implementation (default: arai)",
     )
     p.add_argument(
         "--shards", type=int, default=1,
@@ -143,6 +143,9 @@ def main(argv: list[str] | None = None) -> int:
     try:
         jpeg = encode_ppm_image(image, config, use_native=not args.no_native, device=args.device)
         Path(args.output_file).write_bytes(jpeg)
+    except NotImplementedError as e:  # DMMT_P1_PREC=high
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     except OSError as e:
         print(f"error: cannot write '{args.output_file}': {e}", file=sys.stderr)
         return 1

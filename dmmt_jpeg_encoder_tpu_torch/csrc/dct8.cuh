@@ -1,0 +1,124 @@
+// 8-point DCT device functions shared by the phase-1 and plane-DCT kernels.
+//
+// The float32 roundings are those of the JAX reference as XLA's CPU backend
+// compiles it (see ops/fma.py and ops/dct.py): explicitly rounded
+// __fmul_rn / __fadd_rn / __fsub_rn everywhere, __fmaf_rn exactly where XLA
+// fuses a single-use product into the add that consumes it. The library is
+// built with --fmad=false, so nvcc contracts nothing on its own.
+//
+// - arai8: the Arai-Agui-Nakajima butterfly (src/cosine_transform/arai.rs
+//   op order) with the six fused products of ops/dct.arai_butterfly
+//   (ROADMAP C1); the constants come from ops/fused_arai.kernel_constants.
+// - contract8: the 8-term contraction of the matmul DCTs (DMMT_P1=mxu and
+//   fused1, the SIMPLE and SEPARATED variants; ops/dct.contract8): term n
+//   goes to accumulator n mod 4, the first term of each a plain product,
+//   combined as (a0 + a1) + (a2 + a3).
+// - matmul_dct_quant_tile: C X C^T of every 8x8 group of a shared-memory
+//   tile (column pass, then row pass, each by contract8), / q, round.
+//
+// Device functions cannot be shared between the library's separately
+// compiled sources (no relocatable device code), hence this header.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dmmt {
+
+// Layout of the float32 constants array (ops/fused_arai.kernel_constants).
+enum {
+    K_Y0, K_Y1, K_Y2, K_LEVEL_SHIFT, K_SCALE,
+    K_CB0, K_CB1, K_CB2, K_CR0, K_CR1, K_CR2,
+    K_A1, K_A2, K_A3, K_A4, K_A5,
+    K_S0,
+    K_COUNT = K_S0 + 8,
+};
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// One 8-point AAN pass over x[0], x[step], ..., x[7*step], in place.
+__device__ inline void arai8(float* x, int step, const float* k) {
+    const float v00 = x[0], v01 = x[step], v02 = x[2 * step], v03 = x[3 * step];
+    const float v04 = x[4 * step], v05 = x[5 * step], v06 = x[6 * step], v07 = x[7 * step];
+
+    const float v10 = add(v00, v07), v11 = add(v01, v06), v12 = add(v02, v05);
+    const float v13 = add(v03, v04), v14 = sub(v03, v04), v15 = sub(v02, v05);
+    const float v16 = sub(v01, v06), v17 = sub(v00, v07);
+
+    const float v20 = add(v10, v13), v21 = add(v11, v12), v22 = sub(v11, v12);
+    const float v23 = sub(v10, v13), v24 = sub(-v14, v15), v25 = add(v15, v16);
+    const float v26 = add(v16, v17);
+
+    const float v30 = add(v20, v21), v31 = sub(v20, v21), v32 = add(v22, v23);
+
+    const float m = mul(add(v24, v26), k[K_A5]);
+    const float v44 = fmadd(-v24, k[K_A2], -m), v46 = fmadd(v26, k[K_A4], -m);
+
+    const float v52 = fmadd(v32, k[K_A1], v23), v53 = fmadd(-v32, k[K_A1], v23);
+    const float v55 = fmadd(v25, k[K_A3], v17), v57 = fmadd(-v25, k[K_A3], v17);
+
+    const float v64 = add(v44, v57), v65 = add(v55, v46);
+    const float v66 = sub(v55, v46), v67 = sub(v57, v44);
+
+    x[0] = mul(v30, k[K_S0 + 0]);
+    x[step] = mul(v65, k[K_S0 + 1]);
+    x[2 * step] = mul(v52, k[K_S0 + 2]);
+    x[3 * step] = mul(v67, k[K_S0 + 3]);
+    x[4 * step] = mul(v31, k[K_S0 + 4]);
+    x[5 * step] = mul(v64, k[K_S0 + 5]);
+    x[6 * step] = mul(v53, k[K_S0 + 6]);
+    x[7 * step] = mul(v66, k[K_S0 + 7]);
+}
+
+// sum_n x[n] * w[n] over eight values, in XLA's CPU order.
+__device__ __forceinline__ float contract8(const float (&x)[8], const float* w) {
+    float a0 = mul(x[0], w[0]), a1 = mul(x[1], w[1]), a2 = mul(x[2], w[2]), a3 = mul(x[3], w[3]);
+    a0 = fmadd(x[4], w[4], a0);
+    a1 = fmadd(x[5], w[5], a1);
+    a2 = fmadd(x[6], w[6], a2);
+    a3 = fmadd(x[7], w[7], a3);
+    return add(add(a0, a1), add(a2, a3));
+}
+
+// sign(x) * floor(|x| + 0.5), then int16
+__device__ __forceinline__ short round_half_away(float x) {
+    const float a = floorf(add(fabsf(x), 0.5f));
+    return static_cast<short>(static_cast<int>(x > 0.0f ? a : (x < 0.0f ? -a : 0.0f)));
+}
+
+// The matmul DCT of a rows x cols float32 tile in shared memory (row stride
+// ld; rows and cols multiples of 8), then / q and round, into the int16
+// plane `out` (row stride out_ld) at the tile's place; only the first
+// `valid_cols` columns are written. c: the DCT matrix C [8][8] (row k =
+// frequency), q: the raster table [64]. Every thread of the block calls it;
+// it synchronizes the block between the two passes and before it returns.
+__device__ inline void matmul_dct_quant_tile(float* s, int rows, int cols, int ld,
+                                             const float* c, const float* q, short* out,
+                                             size_t out_ld, int valid_cols) {
+    // column pass (over y): one thread per (8-row group, column)
+    for (int i = threadIdx.x; i < (rows / 8) * cols; i += blockDim.x) {
+        float* col = s + (i / cols) * 8 * ld + i % cols;
+        float x[8];
+        for (int y = 0; y < 8; ++y) x[y] = col[y * ld];
+        for (int v = 0; v < 8; ++v) col[v * ld] = contract8(x, c + v * 8);
+    }
+    __syncthreads();
+    // row pass (over x), / q, round: one thread per (row, 8-column group)
+    for (int i = threadIdx.x; i < rows * (cols / 8); i += blockDim.x) {
+        const int r = i / (cols / 8), g = i % (cols / 8);
+        if (g * 8 >= valid_cols) continue;
+        const float* row = s + r * ld + g * 8;
+        float x[8];
+        for (int j = 0; j < 8; ++j) x[j] = row[j];
+        short* o = out + static_cast<size_t>(r) * out_ld + g * 8;
+        const float* qr = q + (r % 8) * 8;
+        for (int u = 0; u < 8; ++u) o[u] = round_half_away(__fdiv_rn(contract8(x, c + u * 8), qr[u]));
+    }
+    __syncthreads();
+}
+
+}  // namespace dmmt

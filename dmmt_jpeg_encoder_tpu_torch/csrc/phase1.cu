@@ -20,7 +20,8 @@
 // __fadd_rn / __fsub_rn / __fdiv_rn everywhere else, and the library is
 // built with --fmad=false so nvcc contracts nothing on its own. All
 // constants arrive as float32 values computed by the torch package, not
-// retyped here.
+// retyped here. The Arai pass and the rounding live in dct8.cuh, shared
+// with the plane DCT kernel (plane_dct.cu).
 //
 // Bound on the H100: about 5 bytes of device memory per pixel (3 B in,
 // 2 B of int16 out for luma plus a quarter for each chroma plane) against
@@ -34,7 +35,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dct8.cuh"
+
 namespace {
+
+using namespace dmmt;
 
 constexpr int MCUS_PER_CTA = 4;
 constexpr int THREADS = 128;
@@ -50,62 +55,6 @@ __constant__ int kInvZigzag[64] = {
     21, 34, 37, 47, 50, 56, 59, 61,
     35, 36, 48, 49, 57, 58, 62, 63,
 };
-
-// Layout of the float32 constants array (ops/fused_arai.kernel_constants).
-enum {
-    K_Y0, K_Y1, K_Y2, K_LEVEL_SHIFT, K_SCALE,
-    K_CB0, K_CB1, K_CB2, K_CR0, K_CR1, K_CR2,
-    K_A1, K_A2, K_A3, K_A4, K_A5,
-    K_S0,
-    K_COUNT = K_S0 + 8,
-};
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-
-// One 8-point AAN pass over x[0], x[step], ..., x[7*step], in place
-// (src/cosine_transform/arai.rs:29-95 op order; fused products as in
-// ops/dct.arai_butterfly).
-__device__ void arai8(float* x, int step, const float* k) {
-    const float v00 = x[0], v01 = x[step], v02 = x[2 * step], v03 = x[3 * step];
-    const float v04 = x[4 * step], v05 = x[5 * step], v06 = x[6 * step], v07 = x[7 * step];
-
-    const float v10 = add(v00, v07), v11 = add(v01, v06), v12 = add(v02, v05);
-    const float v13 = add(v03, v04), v14 = sub(v03, v04), v15 = sub(v02, v05);
-    const float v16 = sub(v01, v06), v17 = sub(v00, v07);
-
-    const float v20 = add(v10, v13), v21 = add(v11, v12), v22 = sub(v11, v12);
-    const float v23 = sub(v10, v13), v24 = sub(-v14, v15), v25 = add(v15, v16);
-    const float v26 = add(v16, v17);
-
-    const float v30 = add(v20, v21), v31 = sub(v20, v21), v32 = add(v22, v23);
-
-    const float m = mul(add(v24, v26), k[K_A5]);
-    const float v44 = fmadd(-v24, k[K_A2], -m), v46 = fmadd(v26, k[K_A4], -m);
-
-    const float v52 = fmadd(v32, k[K_A1], v23), v53 = fmadd(-v32, k[K_A1], v23);
-    const float v55 = fmadd(v25, k[K_A3], v17), v57 = fmadd(-v25, k[K_A3], v17);
-
-    const float v64 = add(v44, v57), v65 = add(v55, v46);
-    const float v66 = sub(v55, v46), v67 = sub(v57, v44);
-
-    x[0] = mul(v30, k[K_S0 + 0]);
-    x[step] = mul(v65, k[K_S0 + 1]);
-    x[2 * step] = mul(v52, k[K_S0 + 2]);
-    x[3 * step] = mul(v67, k[K_S0 + 3]);
-    x[4 * step] = mul(v31, k[K_S0 + 4]);
-    x[5 * step] = mul(v64, k[K_S0 + 5]);
-    x[6 * step] = mul(v53, k[K_S0 + 6]);
-    x[7 * step] = mul(v66, k[K_S0 + 7]);
-}
-
-// sign(x) * floor(|x| + 0.5), then int16
-__device__ __forceinline__ short round_half_away(float x) {
-    const float a = floorf(add(fabsf(x), 0.5f));
-    return static_cast<short>(static_cast<int>(x > 0.0f ? a : (x < 0.0f ? -a : 0.0f)));
-}
 
 template <int HR, int VR, typename T>
 __global__ void __launch_bounds__(THREADS) phase1_kernel(

@@ -14,8 +14,10 @@ accepts. scan_backend="auto" means "device": the port runs on a card.
 
 The device is explicit: every public function takes `device` (default
 "cuda"). Nothing probes for a card; `device="cpu"` runs the kernels'
-plain versions, for the tests. Configurations outside the ported slice
-raise NotImplementedError naming the ROADMAP item that would add them.
+plain versions, for the tests. Every DCT variant and DMMT_P1 phase-1
+route runs (pipeline.zigzag_blocks); configurations outside the ported
+slice (num_shards > 1, DMMT_P1_PREC=high) raise NotImplementedError naming
+the ROADMAP item that would add them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .bitstream.device_pack import (
     exact_scan_bits,
 )
 from .bitstream.packer import encode_scan
-from .config import DCTVariant, EncoderConfig
+from .config import EncoderConfig
 from .container import assemble_jpeg
 from .huffman.canonical import flat_code_arrays
 from .huffman.spec import SymbolCodeLength, code_lengths_from_histogram
@@ -151,11 +153,6 @@ def pack_scan(
 
 def check_supported(config: EncoderConfig) -> None:
     """Raise NotImplementedError for configurations outside the port."""
-    if config.dct_variant is not DCTVariant.ARAI:
-        raise NotImplementedError(
-            f"DCT variant {config.dct_variant.value!r} is not ported yet "
-            "(ROADMAP A7); the port runs ARAI"
-        )
     if config.num_shards != 1:
         raise NotImplementedError("multi-device encode is not ported yet (ROADMAP A9)")
 

@@ -1,10 +1,11 @@
 """Build, load and launch-count the port's hand-written CUDA kernels.
 
-All sources in ../csrc/*.cu compile with nvcc into ONE shared library
+All sources in ../csrc/*.cu (with the device headers ../csrc/*.cuh they
+include) compile with nvcc into ONE shared library
 with a plain C interface, loaded with ctypes: one nvcc per source, all
 started together, then one link. The build happens at first use (never at
 import), into the repository's `build/kernels/` directory (listed in
-.gitignore), keyed by a hash of the sources and flags, so a fresh
+.gitignore), keyed by a hash of the sources, headers and flags, so a fresh
 checkout rebuilds in seconds and an unchanged one reuses the library. A
 failed build raises.
 
@@ -41,6 +42,7 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "phase1": 0, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
     "histogram": 0, "table_lookup": 0, "pack_emissions": 0,
+    "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0,
 }
 
 _P = ctypes.c_void_p
@@ -55,6 +57,10 @@ _SIGNATURES = {
     "dmmt_histogram_grouped": (_P, _P, _I, _LL, _I, _P, _P),
     "dmmt_table_lookup_grouped": (_P, _P, _I, _LL, _I, _P, _P),
     "dmmt_pack_emissions": (_P, _P, _P, _P, _LL, _P, _LL, _P),
+    "dmmt_plane_dct": (_P, _I, _I, _P, _P, _P, _P),
+    "dmmt_plane_dct_mm": (_P, _I, _I, _P, _P, _P, _P),
+    "dmmt_phase1_mm": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P),
+    "dmmt_block_dct_zz": (_P, _LL, _P, _P, _P),
 }
 
 _LOCK = threading.Lock()
@@ -63,6 +69,11 @@ _LIB: ctypes.CDLL | None = None
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The device headers the sources include (hashed with them)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -110,7 +121,7 @@ def _build(out: Path) -> None:
 def library_path() -> Path:
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"dmmt_kernels_{h.hexdigest()[:16]}.so"

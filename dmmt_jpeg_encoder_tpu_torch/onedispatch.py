@@ -5,8 +5,9 @@ Counterpart of dmmt_jpeg_encoder_tpu.onedispatch (`start_one_dispatch`,
 `finish_one_dispatch`, `tables_from_spec`). `start_one_dispatch` enqueues
 the whole encode on the device stream without waiting:
 
-    phase-1 kernel (normalize, color, subsample, DCT, quantize, zigzag,
-    P420 entangle) -> DC DPCM -> histogram kernel (luma; Cb+Cr) ->
+    phase 1 (normalize, color, subsample, DCT, quantize, zigzag, P420
+    entangle: the kernel pipeline.zigzag_blocks routes to) -> DC DPCM ->
+    histogram kernel (luma; Cb+Cr) ->
     package-merge + canonical codes (huffman/device_tables) -> scan
     interleave -> scan-pack kernel
 
@@ -56,10 +57,9 @@ from .entropy.categorize import symbol_histograms
 from .huffman.canonical import flat_code_arrays
 from .huffman.device_tables import device_code_tables_batched, pad_dc_histogram
 from .huffman.spec import SymbolCodeLength
-from .ops.fused_arai import fused_arai_phase1
 from .ops.geometry import padded_size
-from .pipeline import dc_dpcm_per_image, row_stack
-from .utils.device import as_device, device_constant
+from .pipeline import row_stack, zigzag_blocks
+from .utils.device import as_device
 
 # Worst-case symbol-total bound for exact device table tie-breaking.
 MAX_DEVICE_TABLE_SYMBOLS = 1 << 28
@@ -181,21 +181,20 @@ def pack_inputs(
     rgb: torch.Tensor,
     n_images: int,
     maxval: int,
-    preset: ChromaSubsamplingPreset,
-    luma_q: torch.Tensor,
-    chroma_q: torch.Tensor,
+    config: EncoderConfig,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], list[tuple]]:
     """Everything before the pack, for `rgb` holding n_images row-stacked
-    images (one image: any size; several: each MCU-padded): phase 1 once,
-    DC DPCM per image, histograms per image (symbol_histograms, so
-    DMMT_HIST selects the kernel) and one table build for all 4B tables.
-    Returns (scans int16 [B, N, 64], tables as device_code_tables_batched
-    gives them for [4B, 256] histograms, the four histograms of each
-    image)."""
-    luma, cb, cr = (
-        dc_dpcm_per_image(x, n_images)
-        for x in fused_arai_phase1(rgb, maxval, luma_q, chroma_q, preset)
-    )
+    images (one image: any size; several: each MCU-padded): phase 1 once
+    (pipeline.zigzag_blocks, DC DPCM per image), histograms per image
+    (symbol_histograms, so DMMT_HIST selects the kernel) and one table
+    build for all 4B tables. Returns (scans int16 [B, N, 64], tables as
+    device_code_tables_batched gives them for [4B, 256] histograms, the
+    four histograms of each image)."""
+    preset = config.chroma_subsampling
+    luma, cb, cr = zigzag_blocks(rgb, n_images, maxval, luma_q, chroma_q, preset,
+                                 config.dct_variant)
     n_luma, n_chroma = int(luma.shape[0]) // n_images, int(cb.shape[0]) // n_images
     hists, stack = [], []
     for i in range(n_images):
@@ -225,8 +224,7 @@ def _enqueue(
     """pack_inputs, then the pack: one scan-pack call per image, or one
     slab scan-pack call for all (onepack)."""
     preset = config.chroma_subsampling
-    lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
-    scans, tables, hists = pack_inputs(rgb, n_images, maxval, preset, lq, cq)
+    scans, tables, hists = pack_inputs(rgb, n_images, maxval, config, luma_q, chroma_q)
     lpm = preset.luma_blocks_per_mcu
     n_words = int(scans.shape[1]) * 64 + 2
     codes = tables["codes_flat"].reshape(n_images, 4, 256)

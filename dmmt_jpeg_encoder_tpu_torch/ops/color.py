@@ -30,19 +30,22 @@ CR_WEIGHTS = tuple(np.float32(c) for c in (0.5, -0.4186, -0.0813))
 SCALE = np.float32(255.0)
 
 
-def f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A float32 scalar tensor on `like`'s device."""
-    return torch.tensor(float(x), dtype=torch.float32, device=like.device)
+def f32(x: float) -> torch.Tensor:
+    """A float32 scalar: a 0-dim CPU tensor, which torch applies to a
+    tensor on any device as a scalar, so no op waits for an upload. Not a
+    divisor (but a power of two): torch on a card multiplies by the
+    float32 reciprocal of a CPU scalar divisor."""
+    return torch.tensor(float(x), dtype=torch.float32)
 
 
 def _weighted_sum(r, g, b, weights) -> torch.Tensor:
-    w0, w1, w2 = (f32(w, r) for w in weights)
+    w0, w1, w2 = (f32(w) for w in weights)
     return fma(b, w2, fma(r, w0, g * w1))
 
 
 def luma(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """float32 planes in 0..1 -> level-shifted luma plane."""
-    return (_weighted_sum(r, g, b, Y_WEIGHTS) - f32(LEVEL_SHIFT, r)) * f32(SCALE, r)
+    return (_weighted_sum(r, g, b, Y_WEIGHTS) - f32(LEVEL_SHIFT)) * f32(SCALE)
 
 
 def chroma_sums(

@@ -15,6 +15,15 @@ LLVM fuses the first, so m = (v24 + v26) * A5 is rounded on its own:
 
 The constants are float32 values; the phase-1 CUDA kernel receives these
 same values (ops/fused_arai.py) and fuses at the same points.
+
+The SIMPLE and SEPARATED variants, and the matmul DCT of DMMT_P1=mxu and
+fused1, are contractions with the DCT-II matrix C (`dct_matrix`). XLA's
+CPU backend computes each 8-term contraction of the JAX reference in one
+order, reproduced by `contract8`: term n goes to accumulator n mod 4
+through an fma (the first term of each accumulator is a plain product),
+and the accumulators combine as (a0 + a1) + (a2 + a3). A 2-D transform
+runs the column pass (over y) first, then the row pass (over x). So the
+three give the same floats; the CUDA kernels use the same order.
 """
 
 from __future__ import annotations
@@ -103,3 +112,36 @@ def arai_pass(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     dims."""
     y = arai_butterfly(tuple(x.unbind(dim)))
     return torch.stack(y, dim=dim)
+
+
+def dct_matrix() -> np.ndarray:
+    """8-point DCT-II matrix C (float32): row k is s_k cos((2n+1) k pi / 16)
+    with s_0 = 1/(2 sqrt 2), s_k = 1/2, computed in float64, then cast."""
+    c = np.zeros((8, 8), dtype=np.float64)
+    for k in range(8):
+        s = math.sqrt(1.0 / 8.0) if k == 0 else 0.5
+        for n in range(8):
+            c[k, n] = s * math.cos((2 * n + 1) * k * math.pi / 16.0)
+    return c.astype(np.float32)
+
+
+def contract8(xs, ws) -> torch.Tensor:
+    """sum_n xs[n] * ws[n] over eight same-shaped float32 tensors and eight
+    float32 weights, in the order of the module docstring."""
+    acc = [xs[k] * ws[k] for k in range(4)]
+    acc = [fma(xs[k + 4], ws[k + 4], acc[k]) for k in range(4)]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def matmul_dct_pass(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """out[k] = sum_n C[k, n] x[n] along `dim` (size 8), by contract8."""
+    c = torch.from_numpy(dct_matrix()).to(x.device)
+    xs = x.unbind(dim)
+    return torch.stack([contract8(xs, c[k]) for k in range(8)], dim=dim)
+
+
+def dct2d(blocks: torch.Tensor) -> torch.Tensor:
+    """The SIMPLE and SEPARATED 2-D DCT of float32 [N, 8, 8] blocks (y, x):
+    C X C^T, columns, then rows. The encode runs it on the plane through
+    the matmul plane DCT kernel (ops/mxu_dct), whose floats equal these."""
+    return matmul_dct_pass(matmul_dct_pass(blocks, 1), 2)

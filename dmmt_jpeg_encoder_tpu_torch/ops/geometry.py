@@ -1,7 +1,9 @@
-"""Image geometry (torch): MCU padding, chroma subsampling, P420 entangle.
+"""Image geometry (torch): MCU padding, chroma subsampling, blockize,
+P420 entangle.
 
 Counterpart of dmmt_jpeg_encoder_tpu.ops.geometry for the default
-presets. The Average subsample keeps the reference's summation order
+presets, and of the pair-sum subsample of its ops/fused_phase1. The
+Average subsample keeps the reference's summation order
 (reference: src/image/subsampling.rs:108-122): a 2x2 cell sums as
 ((tl + bl) + tr) + br, then / 4.0; a P422 pair as (l + r) / 2.0.
 
@@ -44,15 +46,49 @@ def pad_to_mcu_multiple(rgb: torch.Tensor, preset: ChromaSubsamplingPreset) -> t
 def subsample_scaled(chroma_sum: torch.Tensor, preset: ChromaSubsamplingPreset) -> torch.Tensor:
     """MCU-padded pre-scale chroma plane [H, W] -> subsampled chroma plane
     (see the module docstring for the arithmetic)."""
-    s = f32(SCALE, chroma_sum)
+    s = f32(SCALE)
     if preset is ChromaSubsamplingPreset.P444:
         return chroma_sum * s
     if preset is ChromaSubsamplingPreset.P422:
         left, right = chroma_sum[:, 0::2], chroma_sum[:, 1::2]
-        return fma(left, s, right * s) / f32(2.0, chroma_sum)
+        return fma(left, s, right * s) / f32(2.0)
     tl, tr = chroma_sum[0::2, 0::2], chroma_sum[0::2, 1::2]
     bl, br = chroma_sum[1::2, 0::2], chroma_sum[1::2, 1::2]
-    return fma(br, s, fma(tr, s, fma(tl, s, bl * s))) / f32(4.0, chroma_sum)
+    return fma(br, s, fma(tr, s, fma(tl, s, bl * s))) / f32(4.0)
+
+
+def subsample_pairs_scaled(chroma_sum: torch.Tensor, preset: ChromaSubsamplingPreset) -> torch.Tensor:
+    """The DMMT_P1=fused1 subsample of a pre-scale chroma plane: vertical
+    pairs first, then horizontal pairs, then one scale by 1 / (h * v),
+    with the scale by 255 fused into the first pair add as XLA compiles
+    the JAX reference (fused_phase1_reference):
+
+        P420: (fma(tl, 255, bl * 255) + fma(tr, 255, br * 255)) * 0.25
+        P422: fma(l, 255, r * 255) * 0.5
+        P444: sum * 255
+    """
+    s = f32(SCALE)
+    if preset is ChromaSubsamplingPreset.P444:
+        return chroma_sum * s
+    if preset is ChromaSubsamplingPreset.P422:
+        pairs = fma(chroma_sum[:, 0::2], s, chroma_sum[:, 1::2] * s)
+    else:
+        cols = fma(chroma_sum[0::2], s, chroma_sum[1::2] * s)
+        pairs = cols[:, 0::2] + cols[:, 1::2]
+    return pairs * f32(1.0 / (preset.horizontal_rate * preset.vertical_rate))
+
+
+def blockize(plane: torch.Tensor) -> torch.Tensor:
+    """[H, W] -> [N, 8, 8] blocks in raster block order."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
+
+
+def entangled_blockize_p420(plane: torch.Tensor) -> torch.Tensor:
+    """[H, W] -> [N, 8, 8] blocks in P420 MCU (quad) order: TL, TR, BL, BR."""
+    h, w = plane.shape
+    return (plane.reshape(h // 16, 2, 8, w // 16, 2, 8)
+            .permute(0, 3, 1, 4, 2, 5).reshape(-1, 8, 8))
 
 
 def entangle_quads(blocks: torch.Tensor, block_rows: int, block_cols: int) -> torch.Tensor:

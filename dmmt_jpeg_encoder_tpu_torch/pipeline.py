@@ -19,20 +19,42 @@ fetches the histograms in one copy). The batch form runs phase 1 once over
 the images row-stacked, each pre-padded to its MCU multiple, as the slab
 does (onedispatch.pack_inputs), and counts per image with the grouped
 histogram kernel.
+
+`zigzag_blocks` turns RGB into DPCM'd zigzag blocks on every path (the
+counterpart of the JAX package's encode_blocks_from_planes and
+fused_phase1_zigzag_blocks). It routes as the JAX package does: the ARAI
+variant on DMMT_P1: "pallas" runs the plane DCT kernel
+(ops/pallas_dct, same bits as "plane"), "mxu" the matmul plane DCT kernel
+(ops/mxu_dct) and "fused1" the fused matmul phase-1 kernel
+(ops/fused_phase1), both not Arai-bit-exact; every other value ("plane",
+the default, and the layout modes plane_mm, plane2, block and fused2,
+whose bits equal plane's) runs the phase-1 kernel (ops/fused_arai). A
+DCT variant other than ARAI ignores DMMT_P1: FUSED runs the block DCT
+kernel (ops/fused) on blockized planes, SIMPLE and SEPARATED the matmul
+plane DCT kernel, whose floats equal theirs (C X C^T, the same summation
+order; blockize only changes the layout).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .config import ChromaSubsamplingPreset, EncoderConfig
+from .config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
 from .entropy.categorize import batched_symbol_histograms, symbol_histograms
 from .ops.color import chroma_sums, luma
 from .ops.dct import arai_pass
-from .ops.geometry import entangle_quads, pad_to_mcu_multiple, padded_size, subsample_scaled
+from .ops.geometry import (
+    blockize,
+    entangle_quads,
+    entangled_blockize_p420,
+    pad_to_mcu_multiple,
+    padded_size,
+    subsample_scaled,
+)
 from .ops.quantize import round_half_away_from_zero
 from .tables import ZIGZAG
 from .utils.device import as_device, device_constant, narrow_pixels
@@ -44,8 +66,7 @@ def plane_to_zigzag_blocks(rounded16: torch.Tensor, entangle: bool) -> torch.Ten
     hh, ww = rounded16.shape
     a, b = hh // 8, ww // 8
     blk = rounded16.reshape(a, 8, b, 8).permute(0, 2, 1, 3).reshape(-1, 64)
-    zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=blk.device)
-    out = blk[:, zz]
+    out = blk[:, device_constant(ZIGZAG.astype(np.int64), blk.device)]
     return entangle_quads(out, a, b) if entangle else out.contiguous()
 
 
@@ -62,24 +83,18 @@ def plane_dct_quant(plane: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     return round_half_away_from_zero(scaled).to(torch.int16).reshape(hh, ww)
 
 
-def zigzag_blocks_from_planes(
-    y: torch.Tensor,
-    cb_sum: torch.Tensor,
-    cr_sum: torch.Tensor,
-    luma_q: torch.Tensor,
-    chroma_q: torch.Tensor,
-    preset: ChromaSubsamplingPreset,
+def ycbcr_planes(
+    rgb: torch.Tensor, maxval: float, preset: ChromaSubsamplingPreset
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """MCU-padded luma plane and pre-scale chroma planes
-    (ops/color.chroma_sums) -> (luma, cb, cr) int16 [N, 64] zigzag blocks
-    BEFORE DC DPCM: luma in MCU order, chroma in raster order."""
-    entangle = preset is ChromaSubsamplingPreset.P420
-    luma_zz = plane_to_zigzag_blocks(plane_dct_quant(y, luma_q), entangle)
-    cbz, crz = (
-        plane_to_zigzag_blocks(plane_dct_quant(subsample_scaled(c, preset), chroma_q), False)
-        for c in (cb_sum, cr_sum)
-    )
-    return luma_zz, cbz, crz
+    """Integer RGB [H, W, 3] (unpadded) -> float32 (luma, subsampled Cb,
+    subsampled Cr) planes of the image padded black to its MCU multiple:
+    the plane path before its DCT. The divisor is a tensor on rgb's
+    device: a CPU scalar divisor would make torch on a card multiply by
+    its float32 reciprocal instead of dividing."""
+    mv = device_constant(np.array(maxval, dtype=np.float32), rgb.device)
+    norm = pad_to_mcu_multiple(rgb.to(torch.float32) / mv, preset)
+    r, g, b = norm.unbind(-1)
+    return luma(r, g, b), *(subsample_scaled(c, preset) for c in chroma_sums(r, g, b))
 
 
 def phase1_zigzag_blocks(
@@ -89,11 +104,57 @@ def phase1_zigzag_blocks(
     chroma_q: torch.Tensor,
     preset: ChromaSubsamplingPreset,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Integer RGB [H, W, 3] (unpadded) -> zigzag_blocks_from_planes."""
-    mv = torch.tensor(float(maxval), dtype=torch.float32, device=rgb.device)
-    norm = pad_to_mcu_multiple(rgb.to(torch.float32) / mv, preset)
-    r, g, b = norm.unbind(-1)
-    return zigzag_blocks_from_planes(luma(r, g, b), *chroma_sums(r, g, b), luma_q, chroma_q, preset)
+    """Integer RGB [H, W, 3] (unpadded) -> (luma, cb, cr) int16 [N, 64]
+    zigzag blocks BEFORE DC DPCM: luma in MCU order, chroma in raster
+    order."""
+    y, cb, cr = ycbcr_planes(rgb, maxval, preset)
+    entangle = preset is ChromaSubsamplingPreset.P420
+    return (plane_to_zigzag_blocks(plane_dct_quant(y, luma_q), entangle),
+            *(plane_to_zigzag_blocks(plane_dct_quant(c, chroma_q), False) for c in (cb, cr)))
+
+
+def zigzag_blocks(
+    rgb: torch.Tensor,
+    n_images: int,
+    maxval: int,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
+    preset: ChromaSubsamplingPreset,
+    variant: DCTVariant,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Integer RGB [H, W, 3] (n_images row-stacked, each MCU-padded, when
+    n_images > 1) + host raster tables -> (luma, cb, cr) int16 [N, 64]
+    zigzag blocks with DC DPCM per image: luma in MCU order, chroma in
+    raster order. Routes as the module docstring says."""
+    from .ops.fused import fused_dct_quantize_zigzag
+    from .ops.fused_arai import fused_arai_phase1
+    from .ops.fused_phase1 import fused_phase1
+    from .ops.mxu_dct import check_p1_precision, plane_dct_quant_mxu
+    from .ops.pallas_dct import plane_dct_quant as plane_dct_quant_kernel
+
+    lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
+    entangle = preset is ChromaSubsamplingPreset.P420
+    mode = os.environ.get("DMMT_P1", "plane") if variant is DCTVariant.ARAI else None
+    if mode in ("mxu", "fused1"):
+        check_p1_precision()
+    if variant is DCTVariant.FUSED:
+        y, cb, cr = ycbcr_planes(rgb, maxval, preset)
+        blocks = (fused_dct_quantize_zigzag(entangled_blockize_p420(y) if entangle else blockize(y),
+                                            luma_q),
+                  *(fused_dct_quantize_zigzag(blockize(c), chroma_q) for c in (cb, cr)))
+    elif mode == "fused1":
+        y, cb, cr = fused_phase1(rgb, maxval, lq, cq, preset)
+        blocks = (plane_to_zigzag_blocks(y, entangle),
+                  *(plane_to_zigzag_blocks(c, False) for c in (cb, cr)))
+    elif mode in ("pallas", "mxu", None):
+        dct = plane_dct_quant_kernel if mode == "pallas" else plane_dct_quant_mxu
+        y, cb, cr = ycbcr_planes(rgb, maxval, preset)
+        # one chroma launch: Cb and Cr stacked (raster order: all Cb, then Cr)
+        cbcr = plane_to_zigzag_blocks(dct(torch.cat([cb, cr]), cq), False)
+        blocks = (plane_to_zigzag_blocks(dct(y, lq), entangle), *cbcr.chunk(2))
+    else:
+        blocks = fused_arai_phase1(rgb, maxval, lq, cq, preset)
+    return tuple(dc_dpcm_per_image(x, n_images) for x in blocks)
 
 
 def dc_dpcm(blocks: torch.Tensor) -> torch.Tensor:
@@ -140,12 +201,9 @@ def run_device_pipeline(
 ) -> DeviceEncodeResult:
     """Enqueue phase 1, DPCM and the histograms of RGB [H, W, 3] samples: a
     host array is uploaded to `device`, a tensor is encoded where it lies."""
-    from .ops.fused_arai import fused_arai_phase1
-
     rgb = as_device(pixels, maxval, device)
-    lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
-    luma, cb, cr = (dc_dpcm(x) for x in fused_arai_phase1(
-        rgb, maxval, lq, cq, config.chroma_subsampling))
+    luma, cb, cr = zigzag_blocks(rgb, 1, maxval, luma_q, chroma_q, config.chroma_subsampling,
+                                 config.dct_variant)
     l_dc, l_ac = symbol_histograms(luma)
     # the chroma tables are shared by Cb and Cr: one count over both
     c_dc, c_ac = symbol_histograms(torch.cat([cb, cr]))
@@ -184,13 +242,10 @@ def run_device_pipeline_batch(
     [B, NL, 64], cb [B, NC, 64], cr [B, NC, 64], luma DC [B, 16], luma AC
     [B, 256], chroma DC [B, 16], chroma AC [B, 256]) on the device, each
     image's as run_device_pipeline gives them."""
-    from .ops.fused_arai import fused_arai_phase1
-
     b = int(pixels_stack.shape[0])
     rgb = row_stack(pixels_stack, maxval, config.chroma_subsampling, device)
-    lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
-    luma, cb, cr = (dc_dpcm_per_image(x, b).reshape(b, -1, 64) for x in fused_arai_phase1(
-        rgb, maxval, lq, cq, config.chroma_subsampling))
+    luma, cb, cr = (x.reshape(b, -1, 64) for x in zigzag_blocks(
+        rgb, b, maxval, luma_q, chroma_q, config.chroma_subsampling, config.dct_variant))
     l_dc, l_ac = batched_symbol_histograms(luma)
     c_dc, c_ac = batched_symbol_histograms(torch.cat([cb, cr], dim=1))
     return luma, cb, cr, l_dc, l_ac, c_dc, c_ac

@@ -60,7 +60,7 @@ def _batch(images, maxval=255, cfg=None):
 def counts(monkeypatch):
     """Count the calls of phase 1 and of both pack wrappers."""
     calls = {"phase1": 0, "slab_pack": 0, "pack": 0}
-    for name, key in (("fused_arai_phase1", "phase1"), ("fused_pack_words_slab", "slab_pack"),
+    for name, key in (("zigzag_blocks", "phase1"), ("fused_pack_words_slab", "slab_pack"),
                       ("fused_pack_words", "pack")):
         real = getattr(tod, name)
 

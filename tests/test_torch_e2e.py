@@ -25,7 +25,16 @@ from dmmt_jpeg_encoder_tpu_torch import cli as port_cli
 from dmmt_jpeg_encoder_tpu_torch import tables as port_tables
 from dmmt_jpeg_encoder_tpu_torch.config import config_from_jax
 from dmmt_jpeg_encoder_tpu_torch.kernels import build
-from torch_port_fixtures import FIXTURES, SMALL_FIXTURES, fixture_pixels, golden_entry, load_goldens
+from torch_port_fixtures import (
+    FIXTURES,
+    ROUTE_BATCHES,
+    ROUTES,
+    SMALL_FIXTURES,
+    fixture_pixels,
+    golden_entry,
+    load_goldens,
+    load_route_goldens,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -119,12 +128,20 @@ def test_cli_matches_jax_cli(tmp_path):
 @pytest.mark.parametrize("flags", [["--dct", "fused"], ["--shards", "2"], ["--dct", "separated"],
                                    ["--dct", "simple"], ["--shards", "4"]])
 def test_cli_refuses_unported_options(tmp_path, flags):
-    """The DCT variants (A7) and sharding (A9); --no-native, --scan-backend
-    host and --one-dispatch off run (test_torch_two_dispatch.py)."""
+    """Sharding (A9) is refused; the DCT variants run, with the JAX CLI's
+    bytes; --no-native, --scan-backend host and --one-dispatch off run
+    (test_torch_two_dispatch.py)."""
     src = tmp_path / "in.ppm"
     write_ppm(src, _image(6, (8, 8)))
-    assert port_cli.main([str(src), str(tmp_path / "o.jpg"), *flags, "--device", "cpu"]) == 1
-    assert not (tmp_path / "o.jpg").exists()
+    out = tmp_path / "o.jpg"
+    if flags[0] == "--shards":
+        assert port_cli.main([str(src), str(out), *flags, "--device", "cpu"]) == 1
+        assert not out.exists()
+        return
+    want = tmp_path / "jax.jpg"
+    assert jax_cli.main([str(src), str(want), *flags]) == 0
+    assert port_cli.main([str(src), str(out), *flags, "--device", "cpu"]) == 0
+    assert out.read_bytes() == want.read_bytes()
 
 
 def test_cli_flags_mirror_jax():
@@ -137,15 +154,19 @@ def test_cli_flags_mirror_jax():
 
 
 def test_unported_configs_raise():
-    """The DCT variants (A7) and sharding (A9) raise; the host backend and
-    one_dispatch="off" encode (test_torch_two_dispatch.py)."""
+    """Sharding (A9) raises; the SEPARATED variant encodes with the JAX
+    package's bytes; the host backend and one_dispatch="off" encode
+    (test_torch_two_dispatch.py)."""
     px = _image(7, (8, 8))
-    for cfg in (dt.EncoderConfig(dct_variant=dt.DCTVariant.SEPARATED),
-                dt.EncoderConfig(num_shards=2)):
-        with pytest.raises(NotImplementedError):
-            dt.encode_array(px, 255, cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu")
+    cfg = dt.EncoderConfig(dct_variant=dt.DCTVariant.SEPARATED)
+    want = dj.encode_array(px, 255, dj.EncoderConfig(dct_variant=dj.DCTVariant.SEPARATED))
+    assert dt.encode_array(px, 255, cfg, device="cpu") == want
+    assert dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu") == [want, want]
+    cfg = dt.EncoderConfig(num_shards=2)
+    with pytest.raises(NotImplementedError):
+        dt.encode_array(px, 255, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu")
 
 
 @pytest.mark.parametrize("preset", list(dj.QuantizationTablePreset))
@@ -179,6 +200,11 @@ def test_port_imports_no_jax():
         "assert p.encode_array(px, 255, host, use_native=False, device='cpu') == jpeg\n"
         "assert p.encode_batch([px, px[::-1].copy(), px], 255, fused_batch=2,"
         " device='cpu')[::2] == [jpeg, jpeg]\n"
+        "fused = p.EncoderConfig(dct_variant=p.DCTVariant.FUSED)\n"
+        "assert p.encode_batch([px, px], 255, fused, fused_batch=2, device='cpu')[0] == "
+        "p.encode_array(px, 255, fused, device='cpu')\n"
+        "import os; os.environ['DMMT_P1'] = 'mxu'\n"
+        "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
         "from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native\n"
         "assert load_native() is not None\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
@@ -192,8 +218,9 @@ def test_port_imports_no_jax():
 
 def test_nvcc_command_line():
     assert [s.name for s in build.sources()] == [
-        "block_hist.cu", "emission_pack.cu", "histogram.cu", "phase1.cu", "scan_pack.cu",
-        "table_lookup.cu"]
+        "block_dct.cu", "block_hist.cu", "emission_pack.cu", "fused_phase1.cu", "histogram.cu",
+        "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "scan_pack.cu", "table_lookup.cu"]
+    assert [h.name for h in build.headers()] == ["dct8.cuh"]
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))
         joined = " ".join(cmd)
@@ -244,6 +271,9 @@ def test_goldens_file_covers_fixtures():
     assert set(goldens) == set(FIXTURES)
     for name in FIXTURES:
         assert set(goldens[name]) == {"pixels_sha256", "jpeg_sha256", "jpeg_len"}
+    routes, route_batches = load_route_goldens()
+    assert set(routes) == set(ROUTES) and all(set(r) == set(FIXTURES) for r in routes.values())
+    assert {r: sorted(b) for r, b in route_batches.items()} == ROUTE_BATCHES
     json.loads((REPO / "tests" / "torch_port_goldens.json").read_text())
 
 
@@ -275,6 +305,11 @@ def test_cuda_kernels_match_plain():
     for a, b in zip(fused_arai_phase1(rgb, 255, q, q, preset),
                     phase1_zigzag_blocks(rgb, 255, q, q, preset)):
         assert torch.equal(a, b)
-    cfg = dt.EncoderConfig(chroma_subsampling=preset, quality=f["quality"])
-    assert dt.encode_array(fixture_pixels("333x1001_p422"), 255, cfg, device="cuda") == \
-        dt.encode_array(fixture_pixels("333x1001_p422"), 255, cfg, device="cpu")
+    from dmmt_jpeg_encoder_tpu_torch.ops.fused_phase1 import fused_phase1, fused_phase1_reference
+
+    for a, b in zip(fused_phase1(rgb, 255, q, q, preset), fused_phase1_reference(rgb, 255, q, q, preset)):
+        assert torch.equal(a, b)
+    px = fixture_pixels("333x1001_p422")
+    for variant in dt.DCTVariant:
+        cfg = dt.EncoderConfig(chroma_subsampling=preset, quality=f["quality"], dct_variant=variant)
+        assert dt.encode_array(px, 255, cfg, device="cuda") == dt.encode_array(px, 255, cfg, device="cpu")

@@ -7,7 +7,10 @@ the pixels and of the JAX package's `encode_array` bytes on the CPU: the
 machine with the GPU has no JAX, so the port's output there is held
 against these digests. Batch fixtures (`BATCH_FIXTURES`, under the key
 "batches") hold the same per frame; frame i of a batch is built from the
-batch's seed + i, so every frame differs.
+batch's seed + i, so every frame differs. Under "routes", the same per
+fixture for each phase-1 route of `ROUTES` (a DMMT_P1 value or a DCT
+variant), and under "route_batches" the frames of the batches named in
+`ROUTE_BATCHES`.
 
 Regenerate the goldens (needs the JAX package) with
 
@@ -16,8 +19,10 @@ Regenerate the goldens (needs the JAX package) with
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +49,39 @@ BATCH_FIXTURES: dict[str, dict] = {
     "batch_odd_p422": dict(n=3, height=45, width=71, maxval=255, preset="P422",
                            quality=90, seed=300),
 }
+
+
+# route -> (DMMT_P1 value or None, DCT variant): the phase-1 routes besides
+# the default (DMMT_P1=plane, ARAI)
+ROUTES: dict[str, tuple[str | None, str]] = {
+    "p1_pallas": ("pallas", "arai"),
+    "p1_mxu": ("mxu", "arai"),
+    "p1_fused1": ("fused1", "arai"),
+    "dct_simple": (None, "simple"),
+    "dct_separated": (None, "separated"),
+    "dct_fused": (None, "fused"),
+}
+# route -> batch fixtures with goldens under it
+ROUTE_BATCHES: dict[str, list[str]] = {
+    "p1_mxu": ["batch_1080p_p420"],
+    "dct_fused": ["batch_1080p_p420"],
+}
+
+
+@contextlib.contextmanager
+def route_env(route: str | None):
+    """DMMT_P1 as `route` sets it (unset for a DCT-variant route or None),
+    restored after the block."""
+    saved = os.environ.pop("DMMT_P1", None)
+    mode = ROUTES[route][0] if route else None
+    if mode:
+        os.environ["DMMT_P1"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("DMMT_P1", None)
+        if saved is not None:
+            os.environ["DMMT_P1"] = saved
 
 
 def fixture_pixels(name: str) -> np.ndarray:
@@ -105,27 +143,35 @@ def load_batch_goldens() -> dict:
     return json.loads(GOLDENS_PATH.read_text())["batches"]
 
 
-def _jax_encode(pixels: np.ndarray, f: dict) -> bytes:
-    """The JAX package's encode_array (imports JAX)."""
+def load_route_goldens() -> tuple[dict, dict]:
+    """(route -> fixture -> entry, route -> batch -> [entry per frame])."""
+    data = json.loads(GOLDENS_PATH.read_text())
+    return data["routes"], data["route_batches"]
+
+
+def _jax_encode(pixels: np.ndarray, f: dict, route: str | None = None) -> bytes:
+    """The JAX package's encode_array under `route` (imports JAX)."""
     import dmmt_jpeg_encoder_tpu as dj
 
     config = dj.EncoderConfig(
-        chroma_subsampling=dj.ChromaSubsamplingPreset(f["preset"]), quality=f["quality"]
+        chroma_subsampling=dj.ChromaSubsamplingPreset(f["preset"]), quality=f["quality"],
+        dct_variant=dj.DCTVariant(ROUTES[route][1] if route else "arai"),
     )
-    return dj.encode_array(pixels, f["maxval"], config)
+    with route_env(route):
+        return dj.encode_array(pixels, f["maxval"], config)
 
 
 def _entry(pixels: np.ndarray, jpeg: bytes) -> dict:
     return {"pixels_sha256": sha256(pixels), "jpeg_sha256": sha256(jpeg), "jpeg_len": len(jpeg)}
 
 
-def golden_entry(name: str) -> dict:
-    return _entry(fixture_pixels(name), _jax_encode(fixture_pixels(name), FIXTURES[name]))
+def golden_entry(name: str, route: str | None = None) -> dict:
+    return _entry(fixture_pixels(name), _jax_encode(fixture_pixels(name), FIXTURES[name], route))
 
 
-def batch_golden_entry(name: str) -> list[dict]:
+def batch_golden_entry(name: str, route: str | None = None) -> list[dict]:
     f = BATCH_FIXTURES[name]
-    return [_entry(px, _jax_encode(px, f)) for px in batch_frames(name)]
+    return [_entry(px, _jax_encode(px, f, route)) for px in batch_frames(name)]
 
 
 def write_goldens() -> None:
@@ -133,6 +179,10 @@ def write_goldens() -> None:
         "source": "dmmt_jpeg_encoder_tpu.encode_array on the JAX CPU backend",
         "fixtures": {name: golden_entry(name) for name in FIXTURES},
         "batches": {name: batch_golden_entry(name) for name in BATCH_FIXTURES},
+        "routes": {route: {name: golden_entry(name, route) for name in FIXTURES}
+                   for route in ROUTES},
+        "route_batches": {route: {name: batch_golden_entry(name, route) for name in names}
+                          for route, names in ROUTE_BATCHES.items()},
     }
     GOLDENS_PATH.write_text(json.dumps(out, indent=1) + "\n")
 
