@@ -28,7 +28,12 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    variant) on the inputs those routes give them, against their plain
    versions, exactly, with kernel, plain and library times at 4K, and the
    color planes those routes make in plain torch against the same on the
-   CPU;
+   CPU; the scan pack with the sharded encode's `valid` mask (a prefix,
+   and no block) on every fixture and the slab scan pack with a [B, N]
+   mask (per-image prefixes, and none) on both batch groups, against
+   their plain versions and (slab) one masked scan-pack call per image,
+   exactly, with kernel, plain and mask-free times at 4K and 1080p x 16;
+   the capability probe (x + 1 on [8, 128] float32) against x + 1;
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -47,7 +52,21 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    two-dispatch, and the 16 x 1080p batch as slab and fused_batch=16 under
    DMMT_P1=mxu and FUSED, each held against the route's goldens with the
    route's kernels counted; warm 4K encode time, one-dispatch and
-   two-dispatch, and one-dispatch under each route.
+   two-dispatch, and one-dispatch under each route;
+5. the sharded encode (parallel/sharding.py), its shards on card 0 (a
+   device list that repeats it), each path's launches counted with the
+   capability probe among them: every single-image fixture at
+   num_shards 2 and 8, one-dispatch and one_dispatch="off"; the 4K frame
+   at 2 and 4 shards with the staged pack, DMMT_HIST=pallas, the host scan
+   backend, DMMT_P1=mxu, FUSED (both the default bytes, as in the JAX
+   package's sharded phase 1) and SIMPLE; the 16 x 1080p batch at 2
+   shards as sharded slab, slab one-pack and per image; the CLI with
+   --shards 2 (and its refusal of --device cuda on too few cards); the
+   same across distinct cards where the machine has them; the
+   multi-process encode (parallel/multihost.py) in two gloo processes;
+   every JPEG held against the JAX goldens; then what sharding costs on
+   one card: the warm 4K encode at 1, 2 and 4 shards and the 16 x 1080p
+   batch as slab and as sharded slab.
 
 The last three lines are the nvidia-smi line, a JSON object with one entry
 per kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
@@ -60,6 +79,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -96,6 +116,8 @@ KERNEL_INFO.update({
                   "dmmt_jpeg_encoder_tpu/ops/fused_phase1.py:238"),
     "block_dct_zz": ("dmmt_jpeg_encoder_tpu_torch/csrc/block_dct.cu",
                      "dmmt_jpeg_encoder_tpu/ops/fused.py:102"),
+    "probe": ("dmmt_jpeg_encoder_tpu_torch/csrc/probe.cu",
+              "dmmt_jpeg_encoder_tpu/utils/capability.py:117"),
 })
 NEW_KERNELS = ("histogram", "table_lookup", "pack_emissions")
 DCT_KERNELS = ("plane_dct", "plane_dct_mm", "phase1_mm", "block_dct_zz")
@@ -135,6 +157,58 @@ OPS_ARAI_PER_COEFF = 18
 OPS_MATMUL_DCT_PER_COEFF = 34
 OPS_PHASE1_MM_PER_PIXEL = 73
 OPS_BLOCK_DCT_PER_COEFF = 131
+
+# The multi-process encode (parallel/multihost.py), one process per rank:
+# two gloo processes on card 0, each fixture at num_shards n (n / 2 shards
+# per process); rank 0 writes each JPEG, every rank prints its launch counts.
+DISTRIBUTED_CASES = (("4k_p420", 2), ("333x1001_p422", 4), ("7x17_p444", 2))
+DISTRIBUTED_WORKER = r"""
+import json, sys
+sys.path[:0] = [sys.argv[4], sys.argv[4] + "/tests"]
+import torch
+import dmmt_jpeg_encoder_tpu_torch as port
+from dmmt_jpeg_encoder_tpu_torch.kernels import build
+from dmmt_jpeg_encoder_tpu_torch.parallel import multihost as mh
+from torch_port_fixtures import FIXTURES, fixture_pixels
+
+rank, port_no, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+mh.initialize_distributed(f"tcp://localhost:{port_no}", 2, rank, backend="gloo")
+for name, n in json.loads(sys.argv[5]):
+    f, px = FIXTURES[name], fixture_pixels(name)
+    cfg = port.EncoderConfig(chroma_subsampling=port.ChromaSubsamplingPreset(f["preset"]),
+                             quality=f["quality"], num_shards=n)
+    r0, r1 = mh.local_row_range(f["height"], f["width"], cfg)
+    jpeg = mh.encode_array_distributed(px[r0:r1] if r1 > r0 else None, f["height"], f["width"],
+                                       f["maxval"], cfg, device=["cuda:0"] * (n // 2))
+    assert (jpeg is None) == (rank != 0)
+    if rank == 0:
+        open(f"{out}.{name}.{n}", "wb").write(jpeg)
+torch.distributed.destroy_process_group()
+print(json.dumps(build.launch_counts()))
+"""
+
+
+def sharded_launches(n: int, images: int, groups: int, times: int = 1, p1=("phase1", 1),
+                     hist: str = "fused", pack: str = "scan_pack", probes: int = 1) -> dict:
+    """Every kernel's launches in a sharded encode of `times` runs of
+    `images` images in `groups` phase-1 groups over n shards: per shard,
+    p1 = (kernel, launches) per phase-1 call; per image and shard, the
+    histograms ("fused": three block-histogram calls, "pallas": four
+    weighted-histogram calls) and the pack ("scan_pack"; "staged": two
+    lookups and one emission pack; "host": none on the card), or per group
+    and shard one slab scan pack ("slab"); and the capability probe once
+    per card (the run starts with no card probed)."""
+    c = {k: 0 for k in KERNEL_INFO}
+    c[p1[0]] = n * groups * p1[1] * times
+    c["block_hist" if hist == "fused" else "histogram"] = (3 if hist == "fused" else 4) * n * images * times
+    if pack == "scan_pack":
+        c["scan_pack"] = n * images * times
+    elif pack == "slab":
+        c["scan_pack_slab"] = n * groups * times
+    elif pack == "staged":
+        c["table_lookup"], c["pack_emissions"] = 2 * n * images * times, n * images * times
+    c["probe"] = probes
+    return c
 
 
 def log(msg: str) -> None:
@@ -421,6 +495,7 @@ def main() -> int:
     )
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_arai import fused_arai_phase1
     from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
+    from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
     from dmmt_jpeg_encoder_tpu_torch.pipeline import (
         dc_dpcm,
         phase1_zigzag_blocks,
@@ -428,6 +503,8 @@ def main() -> int:
         ycbcr_planes,
     )
     from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
+    from dmmt_jpeg_encoder_tpu_torch.utils import capability
+    from dmmt_jpeg_encoder_tpu_torch.utils.capability import probe_add_one
     from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native
     from torch_port_fixtures import (
         BATCH_FIXTURES,
@@ -529,6 +606,20 @@ def main() -> int:
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}: scan_pack kernel != plain")
             errs["scan_pack"] = max(errs["scan_pack"], max_abs_err(torch, a, b))
+        # with the sharded encode's `valid` mask: the first half of the
+        # MCUs (a shard's prefix), and no block at all
+        n_scan = int(scan.shape[0])
+        masks = {"prefix": (torch.arange(n_scan, device=dev)
+                            < n_scan // (lpm + 2) // 2 * (lpm + 2)).to(torch.int32),
+                 "none": torch.zeros(n_scan, dtype=torch.int32, device=dev)}
+        for mname, mask in masks.items():
+            wv = fused_pack_words(*args, valid=mask)
+            check_equal(torch, errs, "scan_pack", f"{name} valid {mname}", wv,
+                        pack_scan_plain(*args, valid=mask))
+            if mname == "none" and (int(wv[1].item()) != 0 or bool(wv[0].any())):
+                raise AssertionError(f"{name}: scan_pack with no valid block emitted bits")
+        log(f"{name}: scan_pack with valid masks (prefix {int(masks['prefix'].sum())} of {n_scan} "
+            "blocks, none) == plain")
         # the weighted histogram, the lookup and the emission pack on this
         # image's two-dispatch inputs (DMMT_HIST=pallas, DMMT_NO_FUSED_PACK=1)
         bits = int(wk[1].item())
@@ -567,6 +658,15 @@ def main() -> int:
             for kname, kf, pf in (("phase1", k1, p1), ("block_hist", k2, p2), ("scan_pack", k3, p3)):
                 timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms")
+            prefix = masks["prefix"]
+            t_kv = cuda_ms(torch, lambda: fused_pack_words(*args, valid=prefix))
+            t_pv = cuda_ms(torch, lambda: pack_scan_plain(*args, valid=prefix))
+            n_valid = int(prefix.sum())
+            bits_v = fused_pack_words(*args, valid=prefix)[1].tolist()
+            b_v = bound(pack_bytes(n_valid, 1, bits_v) + n_scan * 4, n_valid * 64 * OPS_PACK_PER_COEFF)
+            log(f"4k scan_pack with a valid prefix ({n_valid} of {n_scan} blocks): kernel "
+                f"{t_kv:.4f} ms, plain {t_pv:.4f} ms, mask-free kernel {timing['scan_pack'][0]:.4f} ms, "
+                f"bound {b_v[0]:.4f} ms ({b_v[1]})")
             bounds.update(new_kernel_bounds(hist_calls, lookups, emissions, n_words7))
             for kname, (kf, pf, lf) in cases.items():
                 timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
@@ -628,7 +728,38 @@ def main() -> int:
                 errs["scan_pack_slab"] = max(errs["scan_pack_slab"], max_abs_err(torch, x, y))
         log(f"{name}: scan_pack_slab == plain == {b} scan_pack calls "
             f"({b} x {int(scans.shape[1])} blocks, bits {wk[1].tolist()})")
+        # with a [B, N] valid mask: image i keeps the first (i + 1) / (B + 1)
+        # of its MCUs; and with no valid block
+        n_scan, stride = int(scans.shape[1]), lpm + 2
+        keep = torch.tensor([n_scan // stride * (i + 1) // (b + 1) * stride for i in range(b)],
+                            device=dev)
+        valid = (torch.arange(n_scan, device=dev)[None] < keep[:, None]).to(torch.int32)
+        for mname, mask in (("prefix", valid), ("none", torch.zeros_like(valid))):
+            wv = fused_pack_words_slab(scans, stride, lpm, codes, lens, n_words, valid=mask)
+            check_equal(torch, errs, "scan_pack_slab", f"{name} valid {mname}", wv,
+                        pack_scan_slab_plain(scans, stride, lpm, codes, lens, n_words, valid=mask))
+            singles_v = [fused_pack_words(scans[i], stride, lpm, codes[i], lens[i], n_words,
+                                          valid=mask[i]) for i in range(b)]
+            check_equal(torch, errs, "scan_pack_slab", f"{name} valid {mname} vs {b} scan_pack",
+                        wv, (torch.stack([w for w, _ in singles_v]),
+                             torch.cat([t for _, t in singles_v])))
+            if mname == "none" and (bool(wv[1].any()) or bool(wv[0].any())):
+                raise AssertionError(f"{name}: scan_pack_slab with no valid block emitted bits")
+        log(f"{name}: scan_pack_slab with [{b}, {n_scan}] valid masks (per-image prefixes, none) "
+            f"== plain == {b} scan_pack calls with valid")
         if name == "batch_1080p_p420":
+            t_kv = cuda_ms(torch, lambda: fused_pack_words_slab(scans, stride, lpm, codes, lens,
+                                                                n_words, valid=valid))
+            t_pv = cuda_ms(torch, lambda: pack_scan_slab_plain(scans, stride, lpm, codes, lens,
+                                                               n_words, valid=valid))
+            n_valid = int(valid.sum())
+            bits_v = fused_pack_words_slab(scans, stride, lpm, codes, lens, n_words,
+                                           valid=valid)[1].tolist()
+            b_v = bound(pack_bytes(n_valid, b, bits_v) + b * n_scan * 4,
+                        n_valid * 64 * OPS_PACK_PER_COEFF)
+            log(f"1080p x {b} scan_pack_slab with a [B, N] valid mask ({n_valid} of {b * n_scan} "
+                f"blocks): kernel {t_kv:.4f} ms, plain {t_pv:.4f} ms, bound {b_v[0]:.4f} ms "
+                f"({b_v[1]})")
             t_k4, t_plain, t_each = cuda_ms(torch, k4), cuda_ms(torch, p4), cuda_ms(torch, k3_each)
             timing["scan_pack_slab"] = (t_k4, t_plain)
             n_blocks = b * int(scans.shape[1])
@@ -666,6 +797,20 @@ def main() -> int:
     log(f"batch_1080p_p420 fused: grouped kernels == plain ({b} x {int(luma.shape[1])} luma blocks, "
         f"{len(lookups)} lookups, word-aligned per-image stream bases)")
     del luma, cb, cr, hists, hist_calls, lookups, emissions, boff, cases
+
+    # the capability probe on its [8, 128] float32 tile (called directly:
+    # kernels_capable launches it inside the sharded paths below)
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    probe_out = probe_add_one(x)
+    if not torch.equal(probe_out, x + 1):
+        raise AssertionError("probe kernel != plain (x + 1)")
+    errs["probe"] = float((probe_out - (x + 1)).abs().max().item())
+    timing["probe"] = (cuda_ms(torch, lambda: probe_add_one(x), reps=50),
+                       cuda_ms(torch, lambda: x + 1, reps=50))
+    library["probe"] = cuda_ms(torch, lambda: torch.add(x, 1.0), reps=50)
+    bounds["probe"] = bound(2 * x.numel() * 4, x.numel())
+    log(f"probe: kernel == plain; kernel {timing['probe'][0]:.4f} ms, plain {timing['probe'][1]:.4f} "
+        f"ms, library (torch.add) {library['probe']:.4f} ms, bound {bounds['probe'][0]:.7f} ms")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}
@@ -834,6 +979,131 @@ def main() -> int:
                         raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
                     log(f"{route}: {name} {label}: every frame == JAX golden")
 
+    # --- 5. the sharded encode (parallel/sharding.py) ------------------------
+    # n shards on card 0 (a device list that repeats it); each path starts
+    # with no card probed, so its capability probe shows in its counts
+    def run_sharded(label, fn, expect):
+        capability._CAPABLE.clear()
+        return run_path(label, fn, expect)
+
+    def on_card(n):
+        return [f"cuda:{dev.index or 0}"] * n
+
+    def sharded_cfg(cfg, n, **kw):
+        return dataclasses.replace(cfg, num_shards=n, **kw)
+
+    for n in (2, 8):
+        for label, kw in (("one-dispatch", {}), ("one_dispatch=off", {"one_dispatch": "off"})):
+            outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}", lambda: {
+                name: port.encode_array(images[name], f["maxval"], sharded_cfg(configs[name], n, **kw),
+                                        device=on_card(n))
+                for name, f in FIXTURES.items()
+            }, sharded_launches(n, 1, 1, times=n_fix))
+            for name, jpeg in outputs.items():
+                check_golden(name, jpeg, f"sharded n={n} {label}")
+    simple_golden = route_goldens["dct_simple"]["4k_p420"]["jpeg_sha256"]
+    for n in (2, 4):
+        for label, env, kw, expect, want in (
+            ("staged pack (DMMT_NO_FUSED_PACK=1)", {"DMMT_NO_FUSED_PACK": "1"}, {},
+             sharded_launches(n, 1, 1, pack="staged"), None),
+            ("DMMT_HIST=pallas", {"DMMT_HIST": "pallas"}, {}, sharded_launches(n, 1, 1, hist="pallas"),
+             None),
+            ("host scan backend", {}, {"scan_backend": "host"}, sharded_launches(n, 1, 1, pack="host"),
+             None),
+            ("DMMT_P1=mxu (ignored: the default bytes)", {"DMMT_P1": "mxu"}, {},
+             sharded_launches(n, 1, 1), None),
+            ("FUSED (the Arai phase 1: the default bytes)", {}, {"dct_variant": port.DCTVariant.FUSED},
+             sharded_launches(n, 1, 1), None),
+            ("SIMPLE", {}, {"dct_variant": port.DCTVariant.SIMPLE},
+             sharded_launches(n, 1, 1, p1=("plane_dct_mm", 2)), simple_golden),
+        ):
+            with scoped_env(env):
+                jpeg = run_sharded(f"4k_p420 sharded n={n} on one card, {label}", lambda: port.encode_array(
+                    four_k, 255, sharded_cfg(cfg4, n, **kw), device=on_card(n)), expect)
+            if want is None:
+                check_golden("4k_p420", jpeg, f"sharded n={n} {label}")
+            elif sha256(jpeg) != want:
+                raise AssertionError(f"4k_p420 sharded n={n} {label}: cuda JPEG differs from the JAX golden")
+            else:
+                log(f"4k_p420 sharded n={n} {label}: cuda bytes == JAX golden")
+
+    fb, frames_b = BATCH_FIXTURES["batch_1080p_p420"], batches["batch_1080p_p420"]
+    want = [g["jpeg_sha256"] for g in batch_goldens["batch_1080p_p420"]]
+    cfg_b = sharded_cfg(config_of(fb), 2)
+    depth = slab_depth(frames_b, cfg_b, sharding.shard_devices(on_card(2), 2))
+    groups = -(-fb["n"] // depth)
+    if depth < 2:
+        raise AssertionError(f"batch_1080p_p420 sharded: the gate chose depth {depth}")
+    for arm, env, expect in (
+        (f"sharded slab (depth {depth})", {"DMMT_SLAB_ONEPACK": "0"},
+         sharded_launches(2, fb["n"], groups)),
+        (f"sharded slab one-pack (depth {depth})", {"DMMT_SLAB_ONEPACK": "1"},
+         sharded_launches(2, fb["n"], groups, pack="slab")),
+        ("sharded per image (DMMT_SLAB=0)", {"DMMT_SLAB": "0"}, sharded_launches(2, fb["n"], fb["n"])),
+    ):
+        with scoped_env(env):
+            out = run_sharded(f"batch_1080p_p420 n=2 on one card, {arm}", lambda: port.encode_batch(
+                frames_b, fb["maxval"], cfg_b, device=on_card(2)), expect)
+        if [sha256(j) for j in out] != want:
+            raise AssertionError(f"batch_1080p_p420 n=2 {arm}: cuda JPEGs differ from the JAX goldens")
+        log(f"batch_1080p_p420 n=2 {arm}: every frame == JAX golden")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "in.ppm", Path(tmp) / "out.jpg"
+        write_ppm(src, four_k, 255)
+        cli = [sys.executable, "-m", "dmmt_jpeg_encoder_tpu_torch", str(src), str(dst), "-p", "P420",
+               "--shards", "2"]
+        subprocess.run([*cli, "--device", ",".join(on_card(2))], cwd=REPO, check=True, timeout=600)
+        if sha256(dst.read_bytes()) != goldens["4k_p420"]["jpeg_sha256"]:
+            raise AssertionError("4K CLI --shards 2 output differs from the JAX golden")
+        dst.unlink()
+        rc = subprocess.run(cli, cwd=REPO, timeout=600, capture_output=True, text=True)
+        if torch.cuda.device_count() < 2 and (rc.returncode != 1 or dst.exists()):
+            raise AssertionError(f"CLI --shards 2 on {torch.cuda.device_count()} card(s) gave exit "
+                                 f"code {rc.returncode}, not 1: {rc.stderr}")
+        if torch.cuda.device_count() >= 2 and sha256(dst.read_bytes()) != goldens["4k_p420"]["jpeg_sha256"]:
+            raise AssertionError("4K CLI --shards 2 across two cards differs from the JAX golden")
+        log(f"4k CLI --shards 2 --device {','.join(on_card(2))}: bytes == JAX golden; --shards 2 on "
+            f"{torch.cuda.device_count()} card(s) with --device cuda: exit code {rc.returncode} "
+            f"({rc.stderr.strip()})")
+
+    for n in (2, 4, 8):
+        if torch.cuda.device_count() < n:
+            log(f"sharded n={n} across distinct cards: not run ({torch.cuda.device_count()} card(s))")
+            continue
+        jpeg = run_sharded(f"4k_p420 sharded n={n} across {n} cards", lambda: port.encode_array(
+            four_k, 255, sharded_cfg(cfg4, n), device="cuda"), sharded_launches(n, 1, 1, probes=n))
+        check_golden("4k_p420", jpeg, f"sharded n={n} across {n} cards")
+
+    # the multi-process encode: two gloo processes on card 0
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as s:
+        s.bind(("localhost", 0))
+        free_port = s.getsockname()[1]
+        s.close()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", DISTRIBUTED_WORKER, str(rank), str(free_port),
+                                   f"{tmp}/jpeg", str(REPO), json.dumps(DISTRIBUTED_CASES)],
+                                  cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for rank in range(2)]
+        try:
+            results = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for rank, (p, (out, err)) in enumerate(zip(procs, results)):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+            counts = json.loads(out.strip().splitlines()[-1])
+            log(f"distributed rank {rank} launches: {counts}")
+            for k in ("phase1", "block_hist", "scan_pack", "probe"):
+                if counts[k] == 0:
+                    raise AssertionError(f"distributed rank {rank}: {k} never launched")
+        for name, n in DISTRIBUTED_CASES:
+            check_golden(name, Path(f"{tmp}/jpeg.{name}.{n}").read_bytes(),
+                         f"encode_array_distributed, 2 gloo processes, n={n}")
+        log(f"distributed: {len(DISTRIBUTED_CASES)} encodes in 2 processes, "
+            f"{time.perf_counter() - t0:.1f} s with process start")
+
     mpix = FIXTURES["4k_p420"]["height"] * FIXTURES["4k_p420"]["width"] / 1e6
     for route, (_, variant) in ROUTES.items():
         cfg = dataclasses.replace(cfg4, dct_variant=port.DCTVariant(variant))
@@ -857,6 +1127,49 @@ def main() -> int:
         e2e_ms = statistics.median(times[1:])
         log(f"4k e2e encode_array {label} (host array in, JPEG bytes out): median {e2e_ms:.3f} ms "
             f"of {reps}, {mpix / e2e_ms * 1e3:.1f} Mpix/s on {gpu}")
+    # what sharding costs on one card (not scaling: every shard runs on card 0)
+    for n in (1, 2, 4, 1):
+        e2e_ms = wall_ms(lambda: port.encode_array(four_k, 255, sharded_cfg(cfg4, n),
+                                                   device=on_card(n) if n > 1 else dev), reps=5)
+        log(f"4k e2e encode_array one-dispatch, num_shards={n} on one card: median {e2e_ms:.3f} ms "
+            f"of 5, {mpix / e2e_ms * 1e3:.1f} Mpix/s on {gpu}")
+    mpix_b = fb["n"] * fb["height"] * fb["width"] / 1e6
+    for label, cfg, device in (("slab, one shard", config_of(fb), dev),
+                               ("sharded slab, num_shards=2 on one card", cfg_b, on_card(2)),
+                               ("slab, one shard", config_of(fb), dev)):
+        batch_ms = wall_ms(lambda: port.encode_batch(frames_b, fb["maxval"], cfg, device=device))
+        log(f"batch_1080p_p420 encode_batch {label}: median {batch_ms:.3f} ms of 3, "
+            f"{mpix_b / batch_ms * 1e3:.1f} Mpix/s on {gpu}")
+    # where a sharded encode's host time goes (2 shards on one card): the
+    # staging and upload alone; the start (staging, upload and the enqueue
+    # of all device work, run to its end); the finish (fetches, bit-merge,
+    # byte stuffing, table decode)
+    devices2 = sharding.shard_devices(on_card(2), 2)
+    for label, frames_s, cfg_s, start, finish in (
+        ("4k_p420", [four_k], sharded_cfg(cfg4, 2),
+         lambda fr, c: sharding.start_sharded_encode(fr[0], 255, c, devices2),
+         sharding.finish_sharded_encode),
+        ("batch_1080p_p420", frames_b, cfg_b,
+         lambda fr, c: sharding.start_sharded_encode_slab(fr, 255, c, devices2),
+         sharding.finish_sharded_encode_slab),
+    ):
+        h, w = frames_s[0].shape[:2]
+        geom = sharding.Geometry.of(h, w, cfg_s.chroma_subsampling, 2)
+        rows = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            sharding.upload_slabs(frames_s, 255, geom, devices2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state = start(frames_s, cfg_s)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            finish(state, cfg_s)
+            rows.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        up, st, fin = (statistics.median(c) * 1e3 for c in zip(*rows[1:]))
+        log(f"{label} sharded n=2 on one card, host stages: staging + upload {up:.3f} ms; start "
+            f"(staging, upload, all device work) {st:.3f} ms; finish (fetches, bit-merge, stuffing) "
+            f"{fin:.3f} ms; median of 5 on {gpu}")
 
     kernels = [
         {"name": k, "route": "cuda", "source": source, "replaces": rep, "launches": launches[k],

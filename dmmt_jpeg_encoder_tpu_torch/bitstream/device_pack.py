@@ -20,7 +20,9 @@ Counterpart of dmmt_jpeg_encoder_tpu.bitstream.device_pack:
   (bitstream/emission_pack.py).
 - `pack_scan_plain` / `pack_scan_slab_plain`: the scan-pack kernels'
   plain versions (bitstream/fused_pack.py), built from the same pieces
-  with plain lookups.
+  with plain lookups; `mask_emissions` applies their `valid` mask;
+  `staged_pack_words` is the same chain through the lookup and
+  emission-pack kernels (the sharded encode's staged arm).
 - `device_pack_scan` / `device_pack_scan_batch`: the two-dispatch pack of
   one image (the scan-pack kernel, or with DMMT_NO_FUSED_PACK=1 the staged
   pack) and of a fused batch (the staged pack, each image's stream at a
@@ -199,6 +201,22 @@ def block_emissions(
     return values, lens, offs, block_bits
 
 
+def mask_emissions(
+    emissions: tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+    valid: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """block_emissions' (values, lens, offs, block_bits) with every
+    emission of a block where `valid` ([N], optional) is zero cut to length
+    0: the block adds no bits and emits nothing, as the TPU kernels' mask
+    does (bitstream/fused_pack.py:733-740 and :768-799 of the JAX package;
+    its staged sharded pack multiplies the same way, sharding.py:856-867)."""
+    if valid is None:
+        return emissions
+    values, lens, offs, block_bits = emissions
+    keep = (valid != 0).to(torch.int32)
+    return values, lens * keep[:, None], offs, block_bits * keep
+
+
 def block_offsets(
     block_bits: torch.Tensor, boff: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -267,17 +285,40 @@ def pack_scan_plain(
     codes_flat: torch.Tensor,
     lens_flat: torch.Tensor,
     n_words: int,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The scan-pack kernel's plain version, same contract: scan-order
     blocks [N, 64] (block i is chroma iff i % stride >= luma_per_mcu) and
     the four flat tables [4, 256] (luma DC, luma AC, chroma DC, chroma AC)
-    -> (memory-order words int32 [n_words], total_bits int64 [1])."""
+    -> (memory-order words int32 [n_words], total_bits int64 [1]). A block
+    where `valid` ([N], optional) is zero emits nothing (mask_emissions)."""
+    return staged_pack_words(scan, stride, luma_per_mcu, codes_flat, lens_flat, n_words, valid,
+                             plain=True)
+
+
+def staged_pack_words(
+    scan: torch.Tensor,
+    stride: int,
+    luma_per_mcu: int,
+    codes_flat: torch.Tensor,
+    lens_flat: torch.Tensor,
+    n_words: int,
+    valid: torch.Tensor | None = None,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack_scan_plain's contract through the staged pack: block_emissions
+    (the lookup kernel), mask_emissions, the emission-pack kernel and
+    byteswap_words; with `plain`, the plain versions of both kernels (that
+    is pack_scan_plain). Pieces at or past word n_words are dropped."""
+    from .emission_pack import pack_emission_words
+
     table_idx = chroma_index(scan.shape[0], stride, luma_per_mcu, scan.device)
     dc_comb, ac_comb = _stacked_tables(codes_flat[None], lens_flat[None])
-    values, lens, offs, block_bits = block_emissions(
-        scan, table_idx, dc_comb, ac_comb, plain=True
-    )
-    words, total_bits = pack_to_words(values, lens, offs, block_bits, n_words)
+    emissions = mask_emissions(block_emissions(
+        scan, table_idx, dc_comb, ac_comb, plain=plain
+    ), valid)
+    pack = pack_to_words if plain else pack_emission_words
+    words, total_bits = pack(*emissions, n_words)
     return byteswap_words(words), total_bits.reshape(1)
 
 
@@ -288,14 +329,16 @@ def pack_scan_slab_plain(
     codes: torch.Tensor,
     lens: torch.Tensor,
     n_words: int,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The slab scan-pack kernel's plain version: B independent streams,
     each packed exactly as pack_scan_plain packs it alone. scans [B, N, 64]
     (one image's scan-order blocks each), codes/lens [B, 4, 256] (each
-    image's own tables), n_words per image -> (words int32 [B, n_words],
-    total_bits int64 [B])."""
+    image's own tables), valid [B, N] or None, n_words per image ->
+    (words int32 [B, n_words], total_bits int64 [B])."""
     packs = [
-        pack_scan_plain(scans[i], stride, luma_per_mcu, codes[i], lens[i], n_words)
+        pack_scan_plain(scans[i], stride, luma_per_mcu, codes[i], lens[i], n_words,
+                        None if valid is None else valid[i])
         for i in range(scans.shape[0])
     ]
     return torch.stack([w for w, _ in packs]), torch.cat([b for _, b in packs])

@@ -10,6 +10,10 @@ versions are device_pack.pack_scan_plain (block_emissions + pack_to_words
 swept compacted present-symbol tables from SMEM; here the four flat
 (code, length) tables sit whole in shared memory.
 
+Both take the TPU kernels' optional `valid` mask (int [N], or [B, N] for
+the slab): an invalid block contributes 0 bits and emits nothing. The
+sharded encode passes it to leave out each shard's alignment blocks.
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -24,6 +28,15 @@ from .device_pack import pack_scan_plain, pack_scan_slab_plain
 CHUNK = 256  # blocks per CTA in csrc/scan_pack.cu
 
 
+def _mask_arg(valid: torch.Tensor | None, dev: torch.device) -> torch.Tensor | None:
+    """The kernel's int32 mask on `dev` (None: no mask)."""
+    if valid is None:
+        return None
+    if valid.device != dev:
+        raise ValueError(f"valid mask on {valid.device}, blocks on {dev}")
+    return valid.to(torch.int32).contiguous()
+
+
 def fused_pack_words(
     scan: torch.Tensor,
     stride: int,
@@ -31,17 +44,21 @@ def fused_pack_words(
     codes_flat: torch.Tensor,
     lens_flat: torch.Tensor,
     n_words: int,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """int16 [N, 64] scan-order blocks (DC DPCM'd; block i is chroma iff
     i % stride >= luma_per_mcu) + int32 [4, 256] flat tables (luma DC,
     luma AC, chroma DC, chroma AC) -> (words int32 [n_words] holding the
     stream's uint32 words in memory byte order, total_bits int64 [1]).
-    n_words must cover the worst case, N * 64 + 2."""
+    n_words must cover the worst case, N * 64 + 2. `valid` (int or bool
+    [N], nonzero = packed) leaves the other blocks out of the stream."""
     n = int(scan.shape[0])
     if n_words < n * 64 + 2:
         raise ValueError(f"n_words {n_words} below the worst case {n * 64 + 2}")
+    if valid is not None and tuple(valid.shape) != (n,):
+        raise ValueError(f"expected a [{n}] valid mask, got {tuple(valid.shape)}")
     if scan.device.type == "cpu":
-        return pack_scan_plain(scan, stride, luma_per_mcu, codes_flat, lens_flat, n_words)
+        return pack_scan_plain(scan, stride, luma_per_mcu, codes_flat, lens_flat, n_words, valid)
     if scan.device.type != "cuda":
         raise ValueError(f"scan-pack kernel needs a CUDA tensor, got {scan.device}")
     if scan.dtype != torch.int16 or scan.ndim != 2 or scan.shape[1] != 64 or n == 0:
@@ -52,6 +69,7 @@ def fused_pack_words(
     lens = lens_flat.to(device=dev, dtype=torch.int32).contiguous()
     if codes.shape != (4, 256) or lens.shape != (4, 256):
         raise ValueError("expected [4, 256] code and length tables")
+    mask = _mask_arg(valid, dev)
     n_chunks = -(-n // CHUNK)
     words = torch.zeros(n_words, dtype=torch.int32, device=dev)
     block_bits = torch.empty(n, dtype=torch.int32, device=dev)
@@ -61,8 +79,8 @@ def fused_pack_words(
     lib = build.load()
     err = lib.dmmt_scan_pack(
         scan.data_ptr(), n, stride, luma_per_mcu, codes.data_ptr(), lens.data_ptr(),
-        block_bits.data_ptr(), chunk_sums.data_ptr(), chunk_base.data_ptr(),
-        words.data_ptr(), n_words, total_bits.data_ptr(),
+        None if mask is None else mask.data_ptr(), block_bits.data_ptr(), chunk_sums.data_ptr(),
+        chunk_base.data_ptr(), words.data_ptr(), n_words, total_bits.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_scan_pack")
@@ -77,12 +95,14 @@ def fused_pack_words_slab(
     codes: torch.Tensor,
     lens: torch.Tensor,
     n_words: int,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B independent streams in one kernel call: int16 [B, N, 64] scans
     (each image's blocks, DC DPCM'd per image) + int32 [B, 4, 256] per-image
     tables -> (words int32 [B, n_words], total_bits int64 [B]). Image b's
-    row equals fused_pack_words on its own scan and tables. n_words is per
-    image and must cover the worst case, N * 64 + 2."""
+    row equals fused_pack_words on its own scan, tables and valid[b]
+    (`valid`: int or bool [B, N], or None). n_words is per image and must
+    cover the worst case, N * 64 + 2."""
     if scans.ndim != 3 or scans.shape[2] != 64 or scans.shape[0] == 0 or scans.shape[1] == 0:
         raise ValueError(f"expected [B, N, 64] scans, got {tuple(scans.shape)}")
     b, n = int(scans.shape[0]), int(scans.shape[1])
@@ -90,8 +110,10 @@ def fused_pack_words_slab(
         raise ValueError(f"n_words {n_words} below the worst case {n * 64 + 2}")
     if codes.shape != (b, 4, 256) or lens.shape != (b, 4, 256):
         raise ValueError(f"expected [{b}, 4, 256] code and length tables")
+    if valid is not None and tuple(valid.shape) != (b, n):
+        raise ValueError(f"expected a [{b}, {n}] valid mask, got {tuple(valid.shape)}")
     if scans.device.type == "cpu":
-        return pack_scan_slab_plain(scans, stride, luma_per_mcu, codes, lens, n_words)
+        return pack_scan_slab_plain(scans, stride, luma_per_mcu, codes, lens, n_words, valid)
     if scans.device.type != "cuda":
         raise ValueError(f"slab scan-pack kernel needs a CUDA tensor, got {scans.device}")
     if scans.dtype != torch.int16:
@@ -100,6 +122,7 @@ def fused_pack_words_slab(
     scans = scans.contiguous()
     codes = codes.to(device=dev, dtype=torch.int32).contiguous()
     lens = lens.to(device=dev, dtype=torch.int32).contiguous()
+    mask = _mask_arg(valid, dev)
     n_chunks = -(-n // CHUNK)
     words = torch.zeros((b, n_words), dtype=torch.int32, device=dev)
     block_bits = torch.empty((b, n), dtype=torch.int32, device=dev)
@@ -109,8 +132,8 @@ def fused_pack_words_slab(
     lib = build.load()
     err = lib.dmmt_scan_pack_slab(
         scans.data_ptr(), b, n, stride, luma_per_mcu, codes.data_ptr(), lens.data_ptr(),
-        block_bits.data_ptr(), chunk_sums.data_ptr(), chunk_base.data_ptr(),
-        words.data_ptr(), n_words, total_bits.data_ptr(),
+        None if mask is None else mask.data_ptr(), block_bits.data_ptr(), chunk_sums.data_ptr(),
+        chunk_base.data_ptr(), words.data_ptr(), n_words, total_bits.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_scan_pack_slab")

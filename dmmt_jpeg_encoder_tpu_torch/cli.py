@@ -14,9 +14,11 @@ a mirror of the reference's src/cli.rs:75-115):
 plus `--device` (default cuda), which lets the CPU tests drive the CLI
 with the kernels' plain versions. `--one-dispatch off` and `--scan-backend
 host` take the two-dispatch encode, and `--no-native` its Python host
-packer, and `--dct` selects the DCT variant, as in the JAX CLI. `--shards`
-> 1 (outside the ported slice) is parsed as in the JAX CLI and then
-refused with exit code 1, naming the ROADMAP item that would add it.
+packer, `--dct` selects the DCT variant and `--shards N` splits the image
+over N devices, as in the JAX CLI. With `--shards`, `--device` may list
+one device per shard, comma-separated (`cuda:0,cuda:0` puts two shards on
+one card); a single CUDA device means N consecutive cards. An encode that
+cannot run (too few cards, DMMT_P1_PREC=high) exits with code 1.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--shards", type=int, default=1,
-        help="number of devices (default: 1; the only count ported)",
+        help="number of devices to split the image over (default: 1)",
     )
     p.add_argument(
         "--no-native", action="store_true",
@@ -98,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device", default="cuda",
-        help="torch device to encode on (default: cuda)",
+        help="torch device to encode on (default: cuda); with --shards, a "
+        "comma-separated list of one device per shard",
     )
     return p
 
@@ -124,14 +127,10 @@ def parse_args(argv: list[str] | None = None) -> tuple[argparse.Namespace, Encod
 
 def main(argv: list[str] | None = None) -> int:
     args, config = parse_args(argv)
-    from .encoder import check_supported, encode_ppm_image
+    from .encoder import encode_ppm_image
     from .io.ppm import read_ppm
 
-    try:
-        check_supported(config)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    device = args.device.split(",") if "," in args.device else args.device
     try:
         image = read_ppm(args.input_file, threads=args.threads)
     except OSError as e:
@@ -141,9 +140,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: invalid PPM input: {e}", file=sys.stderr)
         return 1
     try:
-        jpeg = encode_ppm_image(image, config, use_native=not args.no_native, device=args.device)
+        jpeg = encode_ppm_image(image, config, use_native=not args.no_native, device=device)
         Path(args.output_file).write_bytes(jpeg)
-    except NotImplementedError as e:  # DMMT_P1_PREC=high
+    except (NotImplementedError, ValueError) as e:  # DMMT_P1_PREC=high, too few cards
         print(f"error: {e}", file=sys.stderr)
         return 1
     except OSError as e:

@@ -38,6 +38,13 @@
 // whole grid tiles and staged compacted tables in SMEM; here a CTA simply
 // never spans two images. Bound: the same bytes per block as above, B
 // times; the 8 KB of tables are read once per CTA from L2.
+//
+// Both entry points take the TPU kernels' optional per-block `valid` mask
+// (int32 [n_blocks], or [n_images, n_blocks] for the slab; null for none):
+// an invalid block contributes 0 bits and emits nothing, so the stream is
+// the valid blocks' alone (the sharded encode masks the alignment blocks
+// that pad an image to a whole number of MCU rows per shard). The test is
+// one load per block, uniform across the block's warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,13 +158,15 @@ __device__ __forceinline__ void put(unsigned* words, long long n_words, long lon
 __global__ void __launch_bounds__(THREADS)
 bits_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
             const int* __restrict__ codes, const int* __restrict__ lens,
-            int* __restrict__ block_bits, long long* __restrict__ chunk_sums) {
+            const int* __restrict__ valid, int* __restrict__ block_bits,
+            long long* __restrict__ chunk_sums) {
     __shared__ Tables t;
     __shared__ long long s_warp[WARPS];
     const long long img = blockIdx.y;  // image of a slab (0 for one stream)
     scan += img * n * 64;
     block_bits += img * n;
     chunk_sums += img * gridDim.x;
+    if (valid) valid += img * n;
     load_tables(t, codes + img * 1024, lens + img * 1024);
     __syncthreads();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -165,6 +174,10 @@ bits_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
     for (int j = warp; j < CHUNK; j += WARPS) {
         const long long b = static_cast<long long>(blockIdx.x) * CHUNK + j;
         if (b >= n) break;
+        if (valid && !valid[b]) {
+            if (lane == 0) block_bits[b] = 0;
+            continue;
+        }
         const int chroma = (b % stride) >= lpm;
         const LaneBlock lb = analyse(scan + b * 64, t, chroma, lane);
         const int zl = zrl_len(t, chroma);
@@ -230,8 +243,9 @@ chunk_scan_kernel(const long long* __restrict__ chunk_sums, long long n_chunks,
 __global__ void __launch_bounds__(THREADS)
 emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
             const int* __restrict__ codes, const int* __restrict__ lens,
-            const int* __restrict__ block_bits, const long long* __restrict__ chunk_base,
-            unsigned* __restrict__ words, long long n_words) {
+            const int* __restrict__ valid, const int* __restrict__ block_bits,
+            const long long* __restrict__ chunk_base, unsigned* __restrict__ words,
+            long long n_words) {
     __shared__ Tables t;
     __shared__ long long s_off[CHUNK];   // exclusive bit offset of each block in the chunk
     __shared__ long long s_warp[WARPS];
@@ -240,6 +254,7 @@ emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
     block_bits += img * n;
     chunk_base += img * gridDim.x;
     words += img * n_words;
+    if (valid) valid += img * n;
     load_tables(t, codes + img * 1024, lens + img * 1024);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long b0 = static_cast<long long>(blockIdx.x) * CHUNK;
@@ -262,6 +277,7 @@ emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
     for (int j = warp; j < CHUNK; j += WARPS) {
         const long long b = b0 + j;
         if (b >= n) break;
+        if (valid && !valid[b]) continue;
         const int chroma = (b % stride) >= lpm;
         const LaneBlock lb = analyse(scan + b * 64, t, chroma, lane);
         const int zl = zrl_len(t, chroma);
@@ -303,50 +319,53 @@ emit_kernel(const short* __restrict__ scan, long long n, int stride, int lpm,
 namespace {
 
 cudaError_t launch_pack(const short* scan, int n_images, long long n_blocks, int stride, int lpm,
-                        const int* codes, const int* lens, int* block_bits,
+                        const int* codes, const int* lens, const int* valid, int* block_bits,
                         long long* chunk_sums, long long* chunk_base, unsigned* words,
                         long long n_words, long long* total_bits, cudaStream_t s) {
     if (n_images < 1 || n_images > 65535 || n_blocks < 1 || stride < 1 || lpm < 1 || lpm > stride)
         return cudaErrorInvalidValue;
     const long long n_chunks = (n_blocks + CHUNK - 1) / CHUNK;
     const dim3 grid(static_cast<unsigned>(n_chunks), static_cast<unsigned>(n_images));
-    bits_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, block_bits,
-                                         chunk_sums);
+    bits_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, valid,
+                                         block_bits, chunk_sums);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     chunk_scan_kernel<<<n_images, SCAN_THREADS, 0, s>>>(chunk_sums, n_chunks, chunk_base,
                                                         total_bits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    emit_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, block_bits,
-                                         chunk_base, words, n_words);
+    emit_kernel<<<grid, THREADS, 0, s>>>(scan, n_blocks, stride, lpm, codes, lens, valid,
+                                         block_bits, chunk_base, words, n_words);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // scan: int16 [n_blocks, 64] in scan order; codes/lens: int32 [4, 256];
-// block_bits: int32 scratch [n_blocks]; chunk_sums, chunk_base: int64 scratch
+// valid: int32 [n_blocks] (nonzero = packed) or null; block_bits: int32
+// scratch [n_blocks]; chunk_sums, chunk_base: int64 scratch
 // [ceil(n_blocks / 256)]; words: uint32 [n_words], zeroed; total_bits: int64 [1].
 extern "C" int dmmt_scan_pack(const short* scan, long long n_blocks, int stride, int lpm,
-                              const int* codes, const int* lens, int* block_bits,
-                              long long* chunk_sums, long long* chunk_base, unsigned* words,
-                              long long n_words, long long* total_bits, void* stream) {
-    return static_cast<int>(launch_pack(scan, 1, n_blocks, stride, lpm, codes, lens, block_bits,
-                                        chunk_sums, chunk_base, words, n_words, total_bits,
-                                        static_cast<cudaStream_t>(stream)));
+                              const int* codes, const int* lens, const int* valid,
+                              int* block_bits, long long* chunk_sums, long long* chunk_base,
+                              unsigned* words, long long n_words, long long* total_bits,
+                              void* stream) {
+    return static_cast<int>(launch_pack(scan, 1, n_blocks, stride, lpm, codes, lens, valid,
+                                        block_bits, chunk_sums, chunk_base, words, n_words,
+                                        total_bits, static_cast<cudaStream_t>(stream)));
 }
 
 // The slab form: scan int16 [n_images, n_blocks, 64]; codes/lens int32
-// [n_images, 4, 256]; block_bits int32 [n_images, n_blocks]; chunk_sums,
-// chunk_base int64 [n_images, ceil(n_blocks / 256)]; words uint32
-// [n_images, n_words], zeroed (n_words per image); total_bits int64 [n_images].
+// [n_images, 4, 256]; valid int32 [n_images, n_blocks] or null; block_bits
+// int32 [n_images, n_blocks]; chunk_sums, chunk_base int64 [n_images,
+// ceil(n_blocks / 256)]; words uint32 [n_images, n_words], zeroed (n_words
+// per image); total_bits int64 [n_images].
 extern "C" int dmmt_scan_pack_slab(const short* scan, int n_images, long long n_blocks,
                                    int stride, int lpm, const int* codes, const int* lens,
-                                   int* block_bits, long long* chunk_sums, long long* chunk_base,
-                                   unsigned* words, long long n_words, long long* total_bits,
-                                   void* stream) {
+                                   const int* valid, int* block_bits, long long* chunk_sums,
+                                   long long* chunk_base, unsigned* words, long long n_words,
+                                   long long* total_bits, void* stream) {
     return static_cast<int>(launch_pack(scan, n_images, n_blocks, stride, lpm, codes, lens,
-                                        block_bits, chunk_sums, chunk_base, words, n_words,
-                                        total_bits, static_cast<cudaStream_t>(stream)));
+                                        valid, block_bits, chunk_sums, chunk_base, words,
+                                        n_words, total_bits, static_cast<cudaStream_t>(stream)));
 }

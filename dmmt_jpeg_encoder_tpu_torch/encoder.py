@@ -12,12 +12,19 @@ with fused_batch > 1 as chunks of one batched device phase and one batched
 pack each. Their bytes equal the JAX package's for every input the port
 accepts. scan_backend="auto" means "device": the port runs on a card.
 
+With num_shards > 1 both split each image's MCU rows over num_shards
+devices (parallel/sharding.py): encode_array runs the sharded encode
+(one-dispatch or two-dispatch), or with scan_backend="host" the sharded
+phase 1 and the host packer; encode_batch pipelines the sharded encode
+per image, or runs same-shape images as sharded slab groups, and ignores
+fused_batch, as in the JAX package.
+
 The device is explicit: every public function takes `device` (default
 "cuda"). Nothing probes for a card; `device="cpu"` runs the kernels'
-plain versions, for the tests. Every DCT variant and DMMT_P1 phase-1
-route runs (pipeline.zigzag_blocks); configurations outside the ported
-slice (num_shards > 1, DMMT_P1_PREC=high) raise NotImplementedError naming
-the ROADMAP item that would add them.
+plain versions, for the tests. A sharded encode takes a list of devices,
+one per shard, which may repeat a device (parallel.sharding.shard_devices).
+Every DCT variant and DMMT_P1 phase-1 route runs (pipeline.zigzag_blocks);
+DMMT_P1_PREC=high raises NotImplementedError (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -151,12 +158,6 @@ def pack_scan(
     return encode_scan(luma, cb, cr, lpm, *flat, use_native=use_native)
 
 
-def check_supported(config: EncoderConfig) -> None:
-    """Raise NotImplementedError for configurations outside the port."""
-    if config.num_shards != 1:
-        raise NotImplementedError("multi-device encode is not ported yet (ROADMAP A9)")
-
-
 def _jpeg(shape: tuple, config: EncoderConfig, luma_q, chroma_q, scan: bytes, tables) -> bytes:
     return assemble_jpeg(
         width=int(shape[1]),
@@ -178,14 +179,24 @@ def encode_array(
     maxval: int = 255,
     config: EncoderConfig | None = None,
     use_native: bool = True,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
 ) -> bytes:
     """uint8/uint16 RGB [H, W, 3] samples -> complete JPEG bytes.
-    use_native=False selects the Python host packer (scan_backend="host")."""
+    use_native=False selects the Python host packer (scan_backend="host").
+    With num_shards > 1, `device` is one device per shard or where to find
+    them (parallel.sharding.shard_devices)."""
     config = config or EncoderConfig()
-    check_supported(config)
     luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
-    if _use_one_dispatch(config, int(pixels.shape[0]), int(pixels.shape[1])):
+    if config.num_shards > 1:
+        from .parallel.sharding import encode_sharded_scan, run_sharded_pipeline
+
+        if _resolve_backend(config) == "host":
+            result = run_sharded_pipeline(pixels, maxval, config, luma_q, chroma_q, device=device)
+            tables = HuffmanTables.from_histograms(result)
+            scan = pack_scan(result, tables, config, use_native=use_native)
+        else:
+            scan, tables = encode_sharded_scan(pixels, maxval, config, device)
+    elif _use_one_dispatch(config, int(pixels.shape[0]), int(pixels.shape[1])):
         state = start_one_dispatch(pixels, maxval, config, luma_q, chroma_q, device=device)
         scan, tables = finish_one_dispatch(state)
     else:
@@ -195,28 +206,41 @@ def encode_array(
     return _jpeg(pixels.shape, config, luma_q, chroma_q, scan, tables)
 
 
-def slab_depth(images: list[np.ndarray], config: EncoderConfig) -> int:
+def slab_depth(images: list[np.ndarray], config: EncoderConfig, devices: list | None = None) -> int:
     """Images per row-stacked slab group, or 1 for the pipelined per-image
     path. The slab needs two or more images of one shape that take the
     one-dispatch encode, and DMMT_SLAB not "0"; its depth is DMMT_SLAB_B
     (default SLAB_B), at most the batch, and at most what the group bound
     allows (onedispatch.slab_max_blocks).
     With DMMT_SLAB_MAX_ROWS set, images taller than that many padded rows
-    take the per-image path."""
+    take the per-image path. For a sharded encode (`devices`, one per
+    shard) the same gate holds for each shard's share of an image: its
+    rows and its blocks. (The JAX package's sharded gate carried TPU
+    constants; a gate measured across several cards waits for a machine
+    that has them.)"""
     if len(images) < 2 or len({px.shape for px in images}) != 1:
         return 1
     if os.environ.get("DMMT_SLAB", "1") == "0":
         return 1
     h, w = int(images[0].shape[0]), int(images[0].shape[1])
     preset = config.chroma_subsampling
-    if not _use_one_dispatch(config, h, w):
-        return 1
+    if devices is None:
+        if not _use_one_dispatch(config, h, w):
+            return 1
+        rows, blocks = padded_size(h, w, preset)[0], blocks_per_image(h, w, preset)
+    else:
+        from .parallel.sharding import Geometry, use_sharded_onedispatch
+
+        if not use_sharded_onedispatch(config, h, w, devices):
+            return 1
+        geom = Geometry.of(h, w, preset, config.num_shards)
+        rows, blocks = geom.shard_h, geom.n_scan
     max_rows = os.environ.get("DMMT_SLAB_MAX_ROWS")
-    if max_rows is not None and padded_size(h, w, preset)[0] > int(max_rows):
+    if max_rows is not None and rows > int(max_rows):
         return 1
     b_env = os.environ.get("DMMT_SLAB_B", "auto")
     depth = SLAB_B if b_env == "auto" else int(b_env)
-    return max(1, min(len(images), depth, slab_max_blocks() // blocks_per_image(h, w, preset)))
+    return max(1, min(len(images), depth, slab_max_blocks() // blocks))
 
 
 # Reused host staging buffers, per (group size, true size, padded size,
@@ -281,10 +305,10 @@ def encode_batch(
     maxval: int = 255,
     config: EncoderConfig | None = None,
     fused_batch: int = 0,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
 ) -> list[bytes]:
     """Encode many images at batch throughput; bytes equal per-image
-    encode_array output.
+    encode_array output. With num_shards > 1: _encode_batch_sharded.
 
     Same-shape batches run as row-stacked slab groups (slab_depth images
     each, onedispatch.start_one_dispatch_slab); mixed shapes, a single
@@ -306,7 +330,8 @@ def encode_batch(
     (_encode_batch_fused). A chunk of one image runs encode_array; images
     too large for a chunk of two take the per-image path."""
     config = config or EncoderConfig()
-    check_supported(config)
+    if config.num_shards > 1:
+        return _encode_batch_sharded(images, maxval, config, device)
     device = torch.device(device)
     same_shape = len({px.shape for px in images}) == 1
     if fused_batch > 1 and same_shape and len(images) > 1 and _resolve_backend(config) == "device":
@@ -370,6 +395,53 @@ def encode_batch(
     return out
 
 
+def _encode_batch_sharded(
+    images: list[np.ndarray], maxval: int, config: EncoderConfig, device
+) -> list[bytes]:
+    """Sharding x batching (fused_batch is ignored, as in the JAX
+    package). The host scan backend encodes one image after another.
+    Otherwise same-shape images run as sharded slab groups of
+    slab_depth(images, config, devices) images
+    (parallel.sharding.start_sharded_encode_slab), or one sharded encode
+    per image, two deep: group g is enqueued before group g-1's fetch,
+    bit-merge and container run."""
+    from .parallel.sharding import (
+        finish_sharded_encode,
+        finish_sharded_encode_slab,
+        shard_devices,
+        start_sharded_encode,
+        start_sharded_encode_slab,
+    )
+
+    if _resolve_backend(config) == "host":
+        return [encode_array(px, maxval, config, device=device) for px in images]
+    devices = shard_devices(device, config.num_shards)
+    luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
+    depth = slab_depth(images, config, devices)
+    groups = [images[i : i + depth] for i in range(0, len(images), depth)]
+
+    def start(part: list[np.ndarray]):
+        if len(part) > 1:
+            return start_sharded_encode_slab(part, maxval, config, devices)
+        return start_sharded_encode(part[0], maxval, config, devices)
+
+    def finish(state, part: list[np.ndarray]) -> list[bytes]:
+        done = (finish_sharded_encode_slab(state, config) if len(part) > 1
+                else [finish_sharded_encode(state, config)])
+        return [_jpeg(px.shape, config, luma_q, chroma_q, scan, tables)
+                for px, (scan, tables) in zip(part, done)]
+
+    out: list[bytes] = []
+    pending: list[tuple] = []
+    for part in groups:
+        pending.append((start(part), part))
+        if len(pending) > 1:
+            out.extend(finish(*pending.pop(0)))
+    while pending:
+        out.extend(finish(*pending.pop(0)))
+    return out
+
+
 def _encode_batch_fused(
     images: list[np.ndarray], maxval: int, config: EncoderConfig, device: torch.device
 ) -> list[bytes]:
@@ -401,7 +473,7 @@ def encode_ppm_image(
     image: PPMImage,
     config: EncoderConfig | None = None,
     use_native: bool = True,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
 ) -> bytes:
     return encode_array(image.pixels, image.maxval, config, use_native=use_native, device=device)
 

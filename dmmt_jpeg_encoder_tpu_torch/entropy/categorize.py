@@ -66,20 +66,28 @@ def ac_symbols_and_structure(
     return symbols, nz, zrl, eob
 
 
-def symbol_histograms(coeffs_zz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def symbol_histograms(
+    coeffs_zz: torch.Tensor, block_mask: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """(dc_hist[16], ac_hist[256]) int32 for [N, 64] zigzag blocks whose DC
-    entries are already DPCM deltas."""
+    entries are already DPCM deltas, counting only the blocks where
+    `block_mask` ([N], optional) is nonzero. A masked count always takes
+    the weighted kernel, as in the JAX package (the sharded encode's mask
+    over Cb and Cr together is no prefix)."""
     from ..ops.block_hist import fused_block_histograms
     from ..ops.histogram import histogram
 
-    if os.environ.get("DMMT_HIST", "fused") == "fused":
+    if os.environ.get("DMMT_HIST", "fused") == "fused" and block_mask is None:
         return fused_block_histograms(coeffs_zz)
+    n = int(coeffs_zz.shape[0])
+    weight = (torch.ones(n, dtype=torch.int32, device=coeffs_zz.device) if block_mask is None
+              else (block_mask != 0).to(torch.int32))
     dc_cat = magnitude_category(coeffs_zz[:, 0])
-    dc_hist = histogram(dc_cat, torch.ones_like(dc_cat), 16)
+    dc_hist = histogram(dc_cat, weight, 16)
     symbols, nz, zrl, eob = ac_symbols_and_structure(coeffs_zz)
-    ac_hist = histogram(symbols, nz.to(torch.int32), 256)
-    ac_hist[0xF0] += zrl.sum(dtype=torch.int32)
-    ac_hist[0x00] += eob.sum(dtype=torch.int32)
+    ac_hist = histogram(symbols, nz.to(torch.int32) * weight[:, None], 256)
+    ac_hist[0xF0] += (zrl * weight[:, None]).sum(dtype=torch.int32)
+    ac_hist[0x00] += (eob.to(torch.int32) * weight).sum(dtype=torch.int32)
     return dc_hist, ac_hist
 
 

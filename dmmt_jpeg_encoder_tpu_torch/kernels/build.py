@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "phase1": 0, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
     "histogram": 0, "table_lookup": 0, "pack_emissions": 0,
-    "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0,
+    "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0, "probe": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,8 +52,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "dmmt_phase1": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P),
     "dmmt_block_hist": (_P, _LL, _LL, _P, _P, _P),
-    "dmmt_scan_pack": (_P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _P, _P),
-    "dmmt_scan_pack_slab": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _P, _P),
+    "dmmt_scan_pack": (_P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P),
+    "dmmt_scan_pack_slab": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P),
     "dmmt_histogram_grouped": (_P, _P, _I, _LL, _I, _P, _P),
     "dmmt_table_lookup_grouped": (_P, _P, _I, _LL, _I, _P, _P),
     "dmmt_pack_emissions": (_P, _P, _P, _P, _LL, _P, _LL, _P),
@@ -61,6 +61,7 @@ _SIGNATURES = {
     "dmmt_plane_dct_mm": (_P, _I, _I, _P, _P, _P, _P),
     "dmmt_phase1_mm": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P),
     "dmmt_block_dct_zz": (_P, _LL, _P, _P, _P),
+    "dmmt_probe": (_P, _P, _I, _P),
 }
 
 _LOCK = threading.Lock()

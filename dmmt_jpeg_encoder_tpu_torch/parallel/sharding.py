@@ -1,0 +1,667 @@
+"""Multi-device encode: the image's MCU rows split over a list of devices.
+
+Counterpart of dmmt_jpeg_encoder_tpu.parallel.sharding. The JAX package
+ran one shard_map program over a 1-D mesh; here one process drives a list
+of `num_shards` torch devices (shard_devices), each shard's work enqueued
+on its own device's stream:
+
+- every shard runs phase 1 on its MCU-aligned slab of the image padded
+  (black) to rows_per_shard * num_shards MCU rows, BEFORE the DC DPCM
+  (pipeline.phase1_blocks);
+- the DC hand-off (the JAX package's ppermute): shard i's chains start
+  from shard i-1's last raw DC of each channel, in final block order
+  (MCU order for P420 luma), alignment blocks included; a vector of one
+  DC per image for the slab;
+- histograms over each shard's valid prefix (the alignment rows are whole
+  trailing MCU rows, so validity is a prefix): the block-histogram kernel
+  with a valid count per channel under DMMT_HIST=fused where the device
+  runs the kernels (utils/capability.kernels_capable), else the masked
+  symbol_histograms (the weighted-histogram kernel, mask as weights);
+- the psum: every shard's histograms copied to the first shard's device
+  and summed there; the one-dispatch encode builds the tables there once
+  and hands each shard device its [4, 256] codes and lengths;
+- each shard packs its own scan segment with the global tables, its
+  alignment blocks masked out (the scan-pack kernel's `valid`); the host
+  fetches each shard's bit count, then the words it needs, and bit-merges
+  the segments (the JAX package's all_gather moves these same compressed
+  segments).
+
+The bytes cross devices as in the JAX package: the 4 histograms (64 + 1024
+ints per image), one DC per channel and image, the compressed segments.
+
+Phase 1 ignores DMMT_P1, as the JAX package's sharded phase 1 does (it
+calls dct2d directly): ARAI runs the phase-1 kernel under every DMMT_P1,
+SIMPLE and SEPARATED the matmul plane DCT kernel as on one device, and
+FUSED (which the JAX package's dct2d does not know, so it computes the
+Arai DCT) the phase-1 kernel too: the sharded FUSED bytes are the ARAI
+bytes, as in the JAX package.
+
+Paths, as in the JAX package: `start_sharded_encode` /
+`finish_sharded_encode` run the one-dispatch encode (device tables from
+the summed histograms, the scan-pack kernel per shard) where the devices
+run the kernels, the fused pack is on (no DMMT_NO_FUSED_PACK), the image
+is within the device table build's bound and one_dispatch is not "off";
+otherwise the two-dispatch encode (host tables from the summed
+histograms, each shard's exact bits from its own histograms, the
+scan-pack kernel or the staged pack per shard). `run_sharded_pipeline`
+returns the blocks with the alignment blocks dropped and the summed
+histograms (encoder.encode_array's host scan backend).
+`start_sharded_encode_slab` / `finish_sharded_encode_slab` run B
+same-geometry images row-stacked per shard: one phase 1 per shard, one
+table build for all 4B tables, then B scan-pack calls per shard or one
+slab scan-pack call (DMMT_SLAB_ONEPACK=1) with a [B, N] mask.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..bitstream.device_pack import (
+    _flat_tables,
+    _use_fused_pack,
+    check_bits_enabled,
+    exact_scan_bits,
+    interleave_scan,
+    staged_pack_words,
+)
+from ..bitstream.fused_pack import fused_pack_words, fused_pack_words_slab
+from ..config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
+from ..entropy.categorize import symbol_histograms
+from ..huffman.device_tables import device_code_tables_batched, pad_dc_histogram
+from ..ops.block_hist import fused_block_histograms
+from ..ops.geometry import padded_size
+from ..pipeline import DeviceEncodeResult, dc_dpcm_per_image, phase1_blocks
+from ..tables import quantization_table_pair
+from ..utils import capability
+from ..utils.device import narrow_pixels, on_device, upload
+
+# one image's histograms side by side: luma DC 16, luma AC 256, chroma DC
+# 16, chroma AC 256
+HIST_SPLITS = (16, 272, 288)
+HIST_WIDTH = 544
+
+
+def shard_devices(device, num_shards: int) -> list[torch.device]:
+    """The device of each of num_shards shards. A list or tuple names them,
+    one per shard, and may repeat a device: its shards then run one after
+    another on that device's stream (several shards on one card). "cpu"
+    puts every shard on the CPU (the kernels' plain versions). A CUDA
+    device is the first of num_shards consecutive cards ("cuda": cards
+    0..num_shards-1); ValueError when there are fewer cards, as the JAX
+    package's build_mesh raises."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be at least 1, got {num_shards}")
+    if isinstance(device, (list, tuple)):
+        devices = [torch.device(d) for d in device]
+        if len(devices) != num_shards:
+            raise ValueError(f"{len(devices)} devices given for num_shards={num_shards}")
+        return devices
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [device] * num_shards
+    if device.type != "cuda":
+        raise ValueError(f"no sharded encode on device type {device.type!r}")
+    first = device.index or 0
+    count = torch.cuda.device_count()
+    if first + num_shards > count:
+        raise ValueError(f"num_shards={num_shards} exceeds available devices ({count} from "
+                         f"cuda:{first}); pass a list such as ['cuda:0'] * {num_shards} to put "
+                         "several shards on one card")
+    return [torch.device("cuda", first + i) for i in range(num_shards)]
+
+
+def shard_geometry(
+    height: int, width: int, preset: ChromaSubsamplingPreset, num_shards: int
+) -> tuple[int, int, int, int]:
+    """(global padded H, padded W, MCU rows per shard, valid MCU rows)."""
+    ph, pw = padded_size(height, width, preset)
+    valid_mcu_rows = ph // preset.mcu_height
+    rows_per_shard = -(-valid_mcu_rows // num_shards)
+    ph_aligned = rows_per_shard * num_shards * preset.mcu_height
+    return ph_aligned, pw, rows_per_shard, valid_mcu_rows
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One image's shard layout (shard_geometry) and per-shard block counts."""
+
+    preset: ChromaSubsamplingPreset
+    num_shards: int
+    ph: int               # padded height, aligned to num_shards * rows_per_shard MCU rows
+    pw: int
+    rows_per_shard: int   # MCU rows per shard
+    valid_mcu_rows: int   # MCU rows of the image padded to its MCU multiple
+
+    @classmethod
+    def of(cls, height: int, width: int, preset: ChromaSubsamplingPreset, num_shards: int):
+        return cls(preset, num_shards, *shard_geometry(height, width, preset, num_shards))
+
+    @property
+    def shard_h(self) -> int:
+        return self.rows_per_shard * self.preset.mcu_height
+
+    @property
+    def luma_per_row(self) -> int:
+        """Luma blocks per MCU row."""
+        return (self.pw // 8) * self.preset.vertical_rate
+
+    @property
+    def chroma_per_row(self) -> int:
+        """Cb (or Cr) blocks per MCU row."""
+        return self.pw // self.preset.horizontal_rate // 8
+
+    @property
+    def lpm(self) -> int:
+        return self.preset.luma_blocks_per_mcu
+
+    @property
+    def n_scan(self) -> int:
+        """Scan-order blocks of one image on one shard."""
+        return self.rows_per_shard * (self.luma_per_row + 2 * self.chroma_per_row)
+
+    def valid_rows(self, shard: int) -> int:
+        """MCU rows of shard `shard` inside the image (the rest is alignment)."""
+        return min(max(self.valid_mcu_rows - shard * self.rows_per_shard, 0), self.rows_per_shard)
+
+    def scan_mask(self, shard: int, device: torch.device) -> torch.Tensor:
+        """int32 [n_scan]: 1 for the shard's blocks inside the image (a prefix
+        in scan order)."""
+        valid = self.valid_rows(shard) * (self.pw // self.preset.mcu_width) * (self.lpm + 2)
+        return (torch.arange(self.n_scan, device=device) < valid).to(torch.int32)
+
+
+def drop_alignment_blocks(
+    blocks: np.ndarray,
+    num_shards: int,
+    rows_per_shard: int,
+    valid_mcu_rows: int,
+    blocks_per_mcu_row: int,
+) -> np.ndarray:
+    """Keep each shard's valid prefix of the shards' blocks concatenated
+    (alignment padding is whole trailing MCU rows, so validity is a prefix
+    in MCU order)."""
+    per_shard = blocks.shape[0] // num_shards
+    keep = []
+    for s in range(num_shards):
+        valid_rows = min(max(valid_mcu_rows - s * rows_per_shard, 0), rows_per_shard)
+        keep.append(blocks[s * per_shard: s * per_shard + valid_rows * blocks_per_mcu_row])
+    return np.concatenate(keep, axis=0)
+
+
+def merge_bit_streams(chunks: list) -> tuple[np.ndarray, int]:
+    """Bit-aligned concatenation of (uint8 stream, bit_length) chunks.
+
+    Streams are MSB-first; bits beyond bit_length must be zero (the scan
+    packs leave masked blocks out, so they are). Vectorized per chunk: each
+    byte contributes its top bits to out[i] and its low bits to out[i+1]."""
+    total_bits = int(sum(b for _, b in chunks))
+    out = np.zeros((total_bits + 7) // 8 + 1, np.uint8)
+    pos = 0
+    for data, bits in chunks:
+        bits = int(bits)
+        if bits == 0:
+            continue
+        nb = (bits + 7) // 8
+        data = np.asarray(data, dtype=np.uint8)[:nb]
+        k = pos & 7
+        byte0 = pos >> 3
+        if k == 0:
+            out[byte0: byte0 + nb] |= data
+        else:
+            out[byte0: byte0 + nb] |= data >> k
+            out[byte0 + 1: byte0 + 1 + nb] |= ((data.astype(np.uint16) << (8 - k)) & 0xFF).astype(np.uint8)
+        pos += bits
+    return out[: (total_bits + 7) // 8], total_bits
+
+
+def merge_and_stuff(chunks: list) -> bytes:
+    """The scan tail of a sharded encode: bit-merge the shards' streams,
+    1-pad the final byte (reference: encoder.rs:267), byte-stuff 0xFFs
+    (segment_marker_injector.rs:14-30)."""
+    merged, total_bits = merge_bit_streams(chunks)
+    pad = len(merged) * 8 - total_bits
+    if pad:
+        merged[-1] |= (1 << pad) - 1
+    ff = np.flatnonzero(merged == 0xFF)
+    if len(ff):
+        merged = np.insert(merged, ff + 1, 0)
+    return merged.tobytes()
+
+
+# --- phase 1 and the histograms ---------------------------------------------
+
+
+def phase1_route(variant: DCTVariant) -> tuple[DCTVariant, str | None]:
+    """(variant, DMMT_P1 mode) for pipeline.phase1_blocks on a shard: the
+    JAX package's sharded phase 1 ignores DMMT_P1 and runs dct2d, which
+    knows SIMPLE and SEPARATED and computes the Arai DCT for the rest."""
+    if variant in (DCTVariant.SIMPLE, DCTVariant.SEPARATED):
+        return variant, None
+    return DCTVariant.ARAI, "plane"
+
+
+def upload_slabs(
+    frames: list[np.ndarray], maxval: int, geom: Geometry, devices: list[torch.device]
+) -> list[torch.Tensor]:
+    """B host images [H, W, 3] of one shape -> each shard's [B * shard_h,
+    pw, 3] row stack of its MCU-row slice of every image, padded black to
+    the aligned size, on its device. Each sample is copied once, into a
+    host buffer (pinned for a card) of which only the padding is zeroed,
+    and uploaded asynchronously; all uploads are enqueued before any
+    phase 1."""
+    frames = [narrow_pixels(np.asarray(px), maxval) for px in frames]
+    height, width = frames[0].shape[:2]
+    dtype = torch.from_numpy(frames[0][:0, 0, 0]).dtype
+    sh = geom.shard_h
+    out = []
+    for s, dev in enumerate(devices):
+        r0, r1 = min(s * sh, height), min((s + 1) * sh, height)
+        host = torch.empty((len(frames), sh, geom.pw, 3), dtype=dtype,
+                           pin_memory=torch.device(dev).type == "cuda")
+        buf = host.numpy()
+        for i, px in enumerate(frames):
+            buf[i, : r1 - r0, :width] = px[r0:r1]
+        buf[:, r1 - r0:] = 0
+        buf[:, : r1 - r0, width:] = 0
+        out.append(host.reshape(-1, geom.pw, 3).to(dev, non_blocking=True))
+    return out
+
+
+def raw_blocks(
+    slabs: list[torch.Tensor], maxval: int, config: EncoderConfig,
+    luma_q: np.ndarray, chroma_q: np.ndarray, devices: list[torch.device],
+) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Each shard's phase 1 (phase1_route), enqueued on its device: (luma
+    in MCU order, cb, cr) int16 [N, 64] zigzag blocks before the DPCM."""
+    variant, mode = phase1_route(config.dct_variant)
+    out = []
+    for rgb, dev in zip(slabs, devices):
+        with on_device(dev):
+            out.append(phase1_blocks(rgb, maxval, luma_q, chroma_q, config.chroma_subsampling,
+                                     variant, mode))
+    return out
+
+
+def last_dcs(blocks: tuple, n_images: int) -> torch.Tensor:
+    """int32 [3, n_images]: each channel's last raw DC of each image (the
+    next shard's first predictors)."""
+    return torch.stack([x[:, 0].to(torch.int32).reshape(n_images, -1)[:, -1] for x in blocks])
+
+
+def chain_dc(
+    raw: list[tuple], n_images: int, devices: list[torch.device],
+    first: torch.Tensor | None = None,
+) -> list[tuple]:
+    """DC DPCM of every shard's blocks, each image's chain continuing across
+    shards: shard i starts from shard i-1's last raw DCs (copied to shard
+    i's device), shard 0 from `first` (int [3, n_images]; None: 0)."""
+    out = []
+    prev = first
+    for blocks, dev in zip(raw, devices):
+        with on_device(dev):
+            start = None if prev is None else prev.to(dev, non_blocking=True)
+            out.append(tuple(dc_dpcm_per_image(x, n_images, None if start is None else start[c])
+                             for c, x in enumerate(blocks)))
+            prev = last_dcs(blocks, n_images)
+    return out
+
+
+def shard_histograms(
+    blocks: tuple, n_images: int, geom: Geometry, shard: int, device: torch.device
+) -> torch.Tensor:
+    """int32 [n_images, 544] histograms (HIST_SPLITS) of one shard's
+    DPCM'd blocks, each image's over its valid prefix: the block-histogram
+    kernel with a valid count per channel (Cb and Cr apart, then added)
+    under DMMT_HIST=fused on a device that runs the kernels, else the
+    masked symbol_histograms."""
+    luma, cb, cr = blocks
+    nl, nc = int(luma.shape[0]) // n_images, int(cb.shape[0]) // n_images
+    rows = geom.valid_rows(shard)
+    n_luma, n_chroma = rows * geom.luma_per_row, rows * geom.chroma_per_row
+    fused = os.environ.get("DMMT_HIST", "fused") == "fused" and capability.kernels_capable(device)
+    if not fused:
+        luma_mask = torch.arange(nl, device=device) < n_luma
+        chroma_mask = torch.arange(nc, device=device) < n_chroma
+        chroma_mask = torch.cat([chroma_mask, chroma_mask])
+    out = []
+    with on_device(device):
+        for i in range(n_images):
+            lz, cbz, crz = luma[i * nl: (i + 1) * nl], cb[i * nc: (i + 1) * nc], cr[i * nc: (i + 1) * nc]
+            if fused:
+                l_dc, l_ac = fused_block_histograms(lz, n_luma)
+                b_dc, b_ac = fused_block_histograms(cbz, n_chroma)
+                r_dc, r_ac = fused_block_histograms(crz, n_chroma)
+                c_dc, c_ac = b_dc + r_dc, b_ac + r_ac
+            else:
+                l_dc, l_ac = symbol_histograms(lz, luma_mask)
+                c_dc, c_ac = symbol_histograms(torch.cat([cbz, crz]), chroma_mask)
+            out.append(torch.cat([l_dc, l_ac, c_dc, c_ac]).to(torch.int32))
+    return torch.stack(out)
+
+
+def gather_histograms(hists: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The psum: every shard's [B, 544] histograms on `device`, stacked
+    [n, B, 544] (their sum over shards is the image's)."""
+    return torch.stack([h.to(device, non_blocking=True) for h in hists])
+
+
+def split_histograms(row) -> tuple:
+    """[..., 544] -> (luma DC, luma AC, chroma DC, chroma AC)."""
+    return tuple(row[..., a:b] for a, b in zip((0, *HIST_SPLITS), (*HIST_SPLITS, HIST_WIDTH)))
+
+
+def device_tables(global_hists: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One table build for all images: [B, 544] summed histograms ->
+    device_code_tables_batched of the 4B tables (luma DC, luma AC, chroma
+    DC, chroma AC per image)."""
+    stack = []
+    for row in global_hists:
+        l_dc, l_ac, c_dc, c_ac = split_histograms(row)
+        stack += [pad_dc_histogram(l_dc), l_ac, pad_dc_histogram(c_dc), c_ac]
+    return device_code_tables_batched(torch.stack(stack))
+
+
+def scans_of(blocks: tuple, n_images: int, geom: Geometry) -> torch.Tensor:
+    """A shard's DPCM'd blocks -> int16 [B, n_scan, 64] scan-order blocks
+    per image (each image's MCUs are contiguous in all three channels)."""
+    luma, cb, cr = blocks
+    return interleave_scan(luma, cb, cr, int(cb.shape[0]), geom.lpm).reshape(n_images, -1, 64)
+
+
+def pack_shard(
+    blocks: tuple, n_images: int, geom: Geometry, shard: int, device: torch.device,
+    codes: torch.Tensor, lens: torch.Tensor, onepack: bool,
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """One shard's scan-pack calls with the global tables (codes/lens
+    [B, 4, 256] on `device`), its alignment blocks masked: B scan-pack
+    calls, or one slab scan-pack call (onepack). Returns (each image's
+    words int32 [n_scan * 64 + 2], total_bits int64 [B])."""
+    n_words = geom.n_scan * 64 + 2
+    with on_device(device):
+        scans = scans_of(blocks, n_images, geom)
+        mask = geom.scan_mask(shard, device)
+        stride = geom.lpm + 2
+        if onepack:
+            words, bits = fused_pack_words_slab(scans, stride, geom.lpm, codes, lens, n_words,
+                                                valid=mask.expand(n_images, -1))
+            return list(words), bits
+        packs = [fused_pack_words(scans[i], stride, geom.lpm, codes[i], lens[i], n_words,
+                                  valid=mask) for i in range(n_images)]
+    return [w for w, _ in packs], torch.cat([b for _, b in packs])
+
+
+# --- the sharded encodes -----------------------------------------------------
+
+
+@dataclass
+class ShardedState:
+    """An enqueued sharded encode of n_images same-geometry images."""
+
+    kind: str                      # "onedispatch" or "twodispatch"
+    geom: Geometry
+    devices: list[torch.device]
+    n_images: int
+    blocks: list[tuple]            # per shard (luma, cb, cr), DPCM'd
+    hists: torch.Tensor            # int32 [n, B, 544] per-shard histograms, on devices[0]
+    words: list[list[torch.Tensor]] = field(default_factory=list)  # [shard][image]
+    bits: list[torch.Tensor] = field(default_factory=list)         # [shard] int64 [B]
+    tables: dict | None = None     # device tables of the one-dispatch encode
+    small: torch.Tensor | None = None        # host copy of bits + table spec
+    small_ready: torch.cuda.Event | None = None
+
+
+def kernels_on(devices: list[torch.device]) -> bool:
+    """Every shard device runs the kernels (utils/capability)."""
+    return all(capability.kernels_capable(d) for d in dict.fromkeys(devices))
+
+
+def onedispatch_allowed(config: EncoderConfig, height: int, width: int) -> bool:
+    """one_dispatch not "off", DMMT_NO_FUSED_PACK not set and the image
+    within the device table build's bound."""
+    from ..onedispatch import one_dispatch_supported
+
+    return (config.one_dispatch != "off" and _use_fused_pack()
+            and one_dispatch_supported(height, width, config.chroma_subsampling))
+
+
+def use_sharded_onedispatch(config: EncoderConfig, height: int, width: int,
+                            devices: list[torch.device]) -> bool:
+    """The one-dispatch sharded encode: onedispatch_allowed, and the
+    devices run the kernels."""
+    return onedispatch_allowed(config, height, width) and kernels_on(devices)
+
+
+def _start(frames: list[np.ndarray], maxval: int, config: EncoderConfig,
+           devices: list[torch.device], onedispatch: bool, luma_q: np.ndarray | None = None,
+           chroma_q: np.ndarray | None = None) -> ShardedState:
+    """Upload, phase 1, DC hand-off and histograms on every shard for B
+    images of one shape, then (onedispatch) one table build on the first
+    shard's device and every shard's pack. The quantization tables default
+    to the config's."""
+    b, (height, width) = len(frames), frames[0].shape[:2]
+    geom = Geometry.of(height, width, config.chroma_subsampling, config.num_shards)
+    if luma_q is None or chroma_q is None:
+        luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
+    slabs = upload_slabs(frames, maxval, geom, devices)
+    blocks = chain_dc(raw_blocks(slabs, maxval, config, luma_q, chroma_q, devices), b, devices)
+    hists = gather_histograms([shard_histograms(x, b, geom, s, dev)
+                               for s, (x, dev) in enumerate(zip(blocks, devices))], devices[0])
+    state = ShardedState("onedispatch" if onedispatch else "twodispatch", geom, devices, b,
+                         blocks, hists)
+    if not onedispatch:
+        return state
+    from ..onedispatch import slab_onepack_enabled
+
+    with on_device(devices[0]):
+        state.tables = device_tables(hists.sum(dim=0))
+    codes = state.tables["codes_flat"].reshape(b, 4, 256)
+    lens = state.tables["lens_flat"].reshape(b, 4, 256)
+    onepack = b > 1 and slab_onepack_enabled()
+    for s, (x, dev) in enumerate(zip(blocks, devices)):
+        words, bits = pack_shard(x, b, geom, s, dev, codes.to(dev, non_blocking=True),
+                                 lens.to(dev, non_blocking=True), onepack)
+        state.words.append(words)
+        state.bits.append(bits)
+    _prefetch(state)
+    return state
+
+
+def _prefetch(state: ShardedState) -> None:
+    """Enqueue one copy of every shard's bit counts and every image's table
+    spec into pinned host memory (on the first shard's device) and record
+    an event behind it."""
+    dev0 = state.devices[0]
+    t = state.tables
+    with on_device(dev0):
+        small = torch.cat([
+            torch.stack([x.to(dev0, non_blocking=True) for x in state.bits]).reshape(-1),
+            t["n_present"].to(torch.int64).reshape(-1),
+            t["sym_by_leaf"].to(torch.int64).reshape(-1),
+            t["len_by_leaf"].to(torch.int64).reshape(-1),
+        ])
+        if dev0.type != "cuda":
+            state.small = small
+            return
+        host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
+        host.copy_(small, non_blocking=True)
+        state.small_ready = torch.cuda.Event()
+        state.small_ready.record()
+        state.small = host
+
+
+def _fetch_segments(state: ShardedState, needed: np.ndarray) -> list[list[np.ndarray]]:
+    """[shard][image] uint8 streams: each shard's first needed[s, i] words
+    of each image, one device->host copy per shard."""
+    out = []
+    for s, dev in enumerate(state.devices):
+        with on_device(dev):
+            parts = [w[: int(n)] for w, n in zip(state.words[s], needed[s])]
+            host = torch.cat(parts).cpu().numpy()
+        offs = np.concatenate([[0], np.cumsum(needed[s])])
+        out.append([host[offs[i]: offs[i + 1]].view(np.uint8) for i in range(state.n_images)])
+    return out
+
+
+def _check_bits(state_hists: np.ndarray, tables, packed: int, what: str) -> None:
+    """DMMT_CHECK_BITS: the packed bit count against the histograms x code
+    lengths prediction."""
+    predicted = exact_scan_bits(split_histograms(state_hists), *tables.flat())
+    if predicted != packed:
+        raise AssertionError(f"{what} packed {packed} bits but histograms x tables predict "
+                             f"{predicted}")
+
+
+def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
+    """Wait for the small copy, fetch the needed words of every shard and
+    image, and bit-merge each image's segments -> [(scan bytes,
+    HuffmanTables)] per image."""
+    from ..onedispatch import tables_from_spec
+
+    if state.small_ready is not None:
+        state.small_ready.synchronize()
+    small = state.small.numpy()
+    n, b = len(state.devices), state.n_images
+    bits = small[: n * b].reshape(n, b)
+    rest = small[n * b:]
+    spec_ns = rest[: 4 * b].reshape(b, 4)
+    spec_syms = rest[4 * b: 4 * b + 1024 * b].reshape(b, 4, 256)
+    spec_lens = rest[4 * b + 1024 * b:].reshape(b, 4, 256)
+    needed = (bits + 31) // 32
+    segments = _fetch_segments(state, needed)
+    check = state.hists.sum(dim=0).cpu().numpy() if check_bits_enabled() else None
+    results = []
+    for i in range(b):
+        tables = tables_from_spec(spec_syms[i], spec_lens[i], spec_ns[i])
+        if check is not None:
+            _check_bits(check[i], tables, int(bits[:, i].sum()), f"sharded one-dispatch image {i}")
+        results.append((merge_and_stuff([(segments[s][i], int(bits[s, i])) for s in range(n)]),
+                        tables))
+    return results
+
+
+def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
+    """One fetch of every shard's histograms; host tables from their sum
+    and each shard's exact bits from its own; each shard's pack (the
+    scan-pack kernel, or with DMMT_NO_FUSED_PACK the staged pack) with the
+    host tables, its alignment blocks masked; fetch and bit-merge."""
+    from ..encoder import HuffmanTables
+
+    geom, devices = state.geom, state.devices
+    per_shard = state.hists[:, 0].cpu().numpy().astype(np.int64)  # [n, 544]
+    tables = HuffmanTables.from_host_histograms(*split_histograms(per_shard.sum(axis=0)))
+    flat = tables.flat()
+    bits = [exact_scan_bits(split_histograms(h), *flat) for h in per_shard]
+    codes_np, lens_np = (x[0] for x in _flat_tables([flat]))
+    # the scan-pack kernel where the devices run the kernels and
+    # DMMT_NO_FUSED_PACK is not set (the JAX package's _use_fused_pack)
+    fused = kernels_on(devices) and _use_fused_pack()
+    stride = geom.lpm + 2
+    for s, (blocks, dev) in enumerate(zip(state.blocks, devices)):
+        with on_device(dev):
+            scan = scans_of(blocks, 1, geom)[0]
+            codes, lens = upload(codes_np, dev), upload(lens_np, dev)
+            mask = geom.scan_mask(s, dev)
+            if fused:
+                words, packed = fused_pack_words(scan, stride, geom.lpm, codes, lens,
+                                                 geom.n_scan * 64 + 2, valid=mask)
+            else:
+                words, packed = staged_pack_words(scan, stride, geom.lpm, codes, lens,
+                                                  (bits[s] + 31) // 32 + 2, valid=mask)
+        state.words.append([words])
+        state.bits.append(packed)
+    if check_bits_enabled():
+        for s, packed in enumerate(state.bits):
+            if int(packed.sum()) != bits[s]:
+                raise AssertionError(f"shard {s} packed {int(packed.sum())} bits but its "
+                                     f"histograms predict {bits[s]}")
+    needed = np.array([[(b + 31) // 32] for b in bits])
+    segments = _fetch_segments(state, needed)
+    return merge_and_stuff([(segments[s][0], bits[s]) for s in range(len(devices))]), tables
+
+
+def start_sharded_encode(
+    pixels: np.ndarray, maxval: int, config: EncoderConfig, device="cuda"
+) -> ShardedState:
+    """Enqueue the sharded encode of RGB [H, W, 3] host samples on
+    shard_devices(device, config.num_shards) without waiting: the
+    one-dispatch encode where use_sharded_onedispatch holds (every shard
+    packed), otherwise the two-dispatch encode's phase 1 and histograms.
+    Finish with finish_sharded_encode."""
+    devices = shard_devices(device, config.num_shards)
+    h, w = int(pixels.shape[0]), int(pixels.shape[1])
+    return _start([pixels], maxval, config, devices, use_sharded_onedispatch(config, h, w, devices))
+
+
+def finish_sharded_encode(state: ShardedState, config: EncoderConfig) -> tuple[bytes, object]:
+    """(stuffed scan bytes, HuffmanTables) of a start_sharded_encode."""
+    if state.kind == "onedispatch":
+        return _finish_onedispatch(state)[0]
+    return _finish_twodispatch(state)
+
+
+def encode_sharded_scan(
+    pixels: np.ndarray, maxval: int, config: EncoderConfig, device="cuda"
+) -> tuple[bytes, object]:
+    """The sharded encode of the entropy scan -> (stuffed scan bytes,
+    HuffmanTables)."""
+    return finish_sharded_encode(start_sharded_encode(pixels, maxval, config, device), config)
+
+
+def start_sharded_encode_slab(
+    pixels_stack, maxval: int, config: EncoderConfig, device="cuda"
+) -> ShardedState:
+    """Enqueue the one-dispatch sharded encode of B same-geometry images
+    ([B, H, W, 3] host samples, or a list of B [H, W, 3] arrays): each shard row-stacks its slice of every
+    image and runs one phase 1, the 4B tables come from one build, and each
+    shard packs its B segments (DMMT_SLAB_ONEPACK=1: in one slab scan-pack
+    call). Raises ValueError when a shard's group exceeds the slab bound
+    (onedispatch.slab_max_blocks)."""
+    from ..onedispatch import slab_max_blocks
+
+    devices = shard_devices(device, config.num_shards)
+    frames = list(pixels_stack)
+    b, (h, w) = len(frames), frames[0].shape[:2]
+    geom = Geometry.of(h, w, config.chroma_subsampling, config.num_shards)
+    limit = slab_max_blocks()
+    if b * geom.n_scan > limit:
+        raise ValueError(f"start_sharded_encode_slab: {b} x {geom.n_scan} blocks per shard "
+                         f"exceeds the {limit}-block group bound (DMMT_SLAB_MAX_BLOCKS); "
+                         "split the group")
+    if not use_sharded_onedispatch(config, h, w, devices):
+        raise ValueError("the sharded slab needs the one-dispatch sharded encode "
+                         "(use_sharded_onedispatch)")
+    return _start(frames, maxval, config, devices, onedispatch=True)
+
+
+def finish_sharded_encode_slab(state: ShardedState, config: EncoderConfig) -> list[tuple[bytes, object]]:
+    """[(stuffed scan bytes, HuffmanTables)] per image of a
+    start_sharded_encode_slab, each equal to the image's own encode."""
+    return _finish_onedispatch(state)
+
+
+def run_sharded_pipeline(
+    pixels: np.ndarray,
+    maxval: int,
+    config: EncoderConfig,
+    luma_q: np.ndarray | None = None,
+    chroma_q: np.ndarray | None = None,
+    device="cuda",
+) -> DeviceEncodeResult:
+    """The sharded phase 1 and histograms -> the blocks (CPU tensors, with
+    drop_alignment_blocks applied) and the summed histograms (numpy), equal
+    to the single-device result."""
+    devices = shard_devices(device, config.num_shards)
+    state = _start([pixels], maxval, config, devices, False, luma_q, chroma_q)
+    g = state.geom
+    out = [
+        torch.from_numpy(drop_alignment_blocks(
+            torch.cat([blocks[c].cpu() for blocks in state.blocks]).numpy(),
+            g.num_shards, g.rows_per_shard, g.valid_mcu_rows, per_row))
+        for c, per_row in enumerate((g.luma_per_row, g.chroma_per_row, g.chroma_per_row))
+    ]
+    hists = split_histograms(state.hists.sum(dim=0)[0].cpu().numpy())
+    return DeviceEncodeResult(*out, *hists)

@@ -126,6 +126,24 @@ def zigzag_blocks(
     n_images > 1) + host raster tables -> (luma, cb, cr) int16 [N, 64]
     zigzag blocks with DC DPCM per image: luma in MCU order, chroma in
     raster order. Routes as the module docstring says."""
+    mode = os.environ.get("DMMT_P1", "plane") if variant is DCTVariant.ARAI else None
+    blocks = phase1_blocks(rgb, maxval, luma_q, chroma_q, preset, variant, mode)
+    return tuple(dc_dpcm_per_image(x, n_images) for x in blocks)
+
+
+def phase1_blocks(
+    rgb: torch.Tensor,
+    maxval: int,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
+    preset: ChromaSubsamplingPreset,
+    variant: DCTVariant,
+    mode: str | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """zigzag_blocks BEFORE the DC DPCM, with the DMMT_P1 value `mode`
+    given (None for a variant other than ARAI): the sharded encode runs its
+    own DPCM, chained across shards, and routes phase 1 otherwise
+    (parallel/sharding.py)."""
     from .ops.fused import fused_dct_quantize_zigzag
     from .ops.fused_arai import fused_arai_phase1
     from .ops.fused_phase1 import fused_phase1
@@ -134,7 +152,6 @@ def zigzag_blocks(
 
     lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
     entangle = preset is ChromaSubsamplingPreset.P420
-    mode = os.environ.get("DMMT_P1", "plane") if variant is DCTVariant.ARAI else None
     if mode in ("mxu", "fused1"):
         check_p1_precision()
     if variant is DCTVariant.FUSED:
@@ -154,7 +171,7 @@ def zigzag_blocks(
         blocks = (plane_to_zigzag_blocks(dct(y, lq), entangle), *cbcr.chunk(2))
     else:
         blocks = fused_arai_phase1(rgb, maxval, lq, cq, preset)
-    return tuple(dc_dpcm_per_image(x, n_images) for x in blocks)
+    return blocks
 
 
 def dc_dpcm(blocks: torch.Tensor) -> torch.Tensor:
@@ -163,14 +180,21 @@ def dc_dpcm(blocks: torch.Tensor) -> torch.Tensor:
     return dc_dpcm_per_image(blocks, 1)
 
 
-def dc_dpcm_per_image(blocks: torch.Tensor, n_images: int) -> torch.Tensor:
+def dc_dpcm_per_image(
+    blocks: torch.Tensor, n_images: int, first: torch.Tensor | None = None
+) -> torch.Tensor:
     """dc_dpcm with chains that RESET at image boundaries: the block axis of
     a row-stacked slab is the concatenation of n_images equal-length
     per-image sequences, and each image's chain starts from predictor 0 as
     a standalone encode's does (pipeline.dc_dpcm_per_image of the JAX
-    package). Computed in int32, then cast back."""
+    package), or from first[i] (int [n_images] on the blocks' device: a
+    shard's chain continues the previous shard's). Computed in int32, then
+    cast back."""
     dc = blocks[:, 0].to(torch.int32).reshape(n_images, -1)
-    prev = torch.nn.functional.pad(dc[:, :-1], (1, 0))
+    if first is None:
+        prev = torch.nn.functional.pad(dc[:, :-1], (1, 0))
+    else:
+        prev = torch.cat([first.to(torch.int32).reshape(n_images, 1), dc[:, :-1]], dim=1)
     out = blocks.clone()
     out[:, 0] = (dc - prev).reshape(-1).to(blocks.dtype)
     return out

@@ -1,0 +1,72 @@
+"""Kernel capability probe: can this device run the port's CUDA kernels?
+
+Counterpart of dmmt_jpeg_encoder_tpu.utils.capability (`pallas_capable`,
+`_probe_lowering`). The JAX package lowered a trivial pallas_call once per
+process and, where that failed, wrote a line to stderr and fell back to
+XLA paths. Here `kernels_capable(device)` answers per device:
+
+- the CPU: False. The sharded encode then takes the paths the JAX package
+  takes without Pallas (masked histograms, two dispatches, the staged
+  pack), each kernel wrapper running its plain version;
+- a CUDA device: the probe kernel (csrc/probe.cu, `probe_add_one`) is
+  launched once per process and device on an [8, 128] float32 tile and its
+  result checked against x + 1; True once it has passed. A failed build,
+  launch or check raises: the port never hides the card behind a fallback.
+
+DMMT_PALLAS_INTERPRET, DMMT_FORCE_PALLAS, trace_mode_key and
+mode_keyed_cache have no counterpart: the port traces no programs, and no
+byte depends on them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build
+
+PROBE_SHAPE = (8, 128)
+
+# CUDA device indices whose probe passed in this process
+_CAPABLE: set[int] = set()
+
+
+def probe_add_one(x: torch.Tensor) -> torch.Tensor:
+    """x + 1 on a float32 tensor: the probe kernel, or on a CPU tensor its
+    plain version."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"expected float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return x + 1
+    if x.device.type != "cuda":
+        raise ValueError(f"probe kernel needs a CUDA tensor, got {x.device}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib = build.load()
+    err = lib.dmmt_probe(x.data_ptr(), out.data_ptr(), x.numel(),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dmmt_probe")
+    build.LAUNCHES["probe"] += 1
+    return out
+
+
+def kernels_capable(device: torch.device | str) -> bool:
+    """True for a CUDA device whose probe kernel ran and gave x + 1 (probed
+    once per process and device), False for the CPU; raises for a CUDA
+    device where the build, the launch or the result fails."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no kernels for device type {device.type!r}")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index in _CAPABLE:
+        return True
+    dev = torch.device("cuda", index)
+    x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32,
+                     device=dev).reshape(PROBE_SHAPE)
+    with torch.cuda.device(dev):
+        out = probe_add_one(x)
+    if not torch.equal(out, x + 1):
+        raise RuntimeError(f"the probe kernel gave a wrong result on {dev}")
+    _CAPABLE.add(index)
+    return True

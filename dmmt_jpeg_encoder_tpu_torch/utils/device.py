@@ -8,9 +8,13 @@ each distinct small array once per device and returns the same tensor
 after that; callers must not modify it. `upload` copies a per-image array
 (code tables, block offsets) through pinned memory, asynchronously.
 `narrow_pixels` and `as_device` bring an image's samples to the device.
+`on_device` makes a card current, so that kernels launched through ctypes
+(which go to the current card) run where their tensors lie.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -49,3 +53,10 @@ def as_device(pixels: np.ndarray | torch.Tensor, maxval: int, device) -> torch.T
     if isinstance(pixels, torch.Tensor):
         return pixels
     return torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval))).to(device)
+
+
+def on_device(device: torch.device):
+    """A context in which `device` (a card) is the current CUDA device; no
+    effect for the CPU."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -168,13 +168,16 @@ def test_slab_stack_buffer_not_contaminated_across_sizes(monkeypatch):
 
 def test_fused_batch_and_shards_raise(counts):
     """fused_batch=2 encodes (the fused batch: phase 1 once, no slab or
-    per-image pack); num_shards > 1 still raises (A9)."""
+    per-image pack); num_shards > 1 no longer raises: it ignores
+    fused_batch, as the JAX package does, and takes the sharded encode
+    (test_torch_sharding.py), with the same bytes."""
     images = _frames(2, (8, 8), seed=1)
     assert dt.encode_batch(images, 255, dt.EncoderConfig(), fused_batch=2, device="cpu") == \
         _want(images)
     assert counts == {"phase1": 0, "slab_pack": 0, "pack": 0}
-    with pytest.raises(NotImplementedError, match="A9"):
-        dt.encode_batch(images, 255, dt.EncoderConfig(num_shards=2), device="cpu")
+    assert dt.encode_batch(images, 255, dt.EncoderConfig(num_shards=2), fused_batch=2,
+                           device="cpu") == _want(images)
+    assert counts == {"phase1": 0, "slab_pack": 0, "pack": 0}
 
 
 def test_slab_depth_gate(monkeypatch):

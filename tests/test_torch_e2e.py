@@ -128,16 +128,12 @@ def test_cli_matches_jax_cli(tmp_path):
 @pytest.mark.parametrize("flags", [["--dct", "fused"], ["--shards", "2"], ["--dct", "separated"],
                                    ["--dct", "simple"], ["--shards", "4"]])
 def test_cli_refuses_unported_options(tmp_path, flags):
-    """Sharding (A9) is refused; the DCT variants run, with the JAX CLI's
-    bytes; --no-native, --scan-backend host and --one-dispatch off run
-    (test_torch_two_dispatch.py)."""
+    """Nothing is refused any more: sharding and the DCT variants run, with
+    the JAX CLI's bytes; --no-native, --scan-backend host and --one-dispatch
+    off run (test_torch_two_dispatch.py)."""
     src = tmp_path / "in.ppm"
     write_ppm(src, _image(6, (8, 8)))
     out = tmp_path / "o.jpg"
-    if flags[0] == "--shards":
-        assert port_cli.main([str(src), str(out), *flags, "--device", "cpu"]) == 1
-        assert not out.exists()
-        return
     want = tmp_path / "jax.jpg"
     assert jax_cli.main([str(src), str(want), *flags]) == 0
     assert port_cli.main([str(src), str(out), *flags, "--device", "cpu"]) == 0
@@ -154,7 +150,8 @@ def test_cli_flags_mirror_jax():
 
 
 def test_unported_configs_raise():
-    """Sharding (A9) raises; the SEPARATED variant encodes with the JAX
+    """Only DMMT_P1_PREC=high raises (test_torch_p1_modes.py): the
+    SEPARATED variant and sharding (fused_batch ignored) encode with the JAX
     package's bytes; the host backend and one_dispatch="off" encode
     (test_torch_two_dispatch.py)."""
     px = _image(7, (8, 8))
@@ -163,10 +160,9 @@ def test_unported_configs_raise():
     assert dt.encode_array(px, 255, cfg, device="cpu") == want
     assert dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu") == [want, want]
     cfg = dt.EncoderConfig(num_shards=2)
-    with pytest.raises(NotImplementedError):
-        dt.encode_array(px, 255, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu")
+    want = dj.encode_array(px, 255, dj.EncoderConfig(num_shards=2))
+    assert dt.encode_array(px, 255, cfg, device="cpu") == want
+    assert dt.encode_batch([px, px], 255, cfg, fused_batch=2, device="cpu") == [want, want]
 
 
 @pytest.mark.parametrize("preset", list(dj.QuantizationTablePreset))
@@ -203,6 +199,13 @@ def test_port_imports_no_jax():
         "fused = p.EncoderConfig(dct_variant=p.DCTVariant.FUSED)\n"
         "assert p.encode_batch([px, px], 255, fused, fused_batch=2, device='cpu')[0] == "
         "p.encode_array(px, 255, fused, device='cpu')\n"
+        "sharded = p.EncoderConfig(num_shards=2)\n"
+        "assert p.encode_array(px, 255, sharded, device='cpu') == jpeg\n"
+        "assert p.encode_batch([px, px], 255, sharded, device=['cpu', 'cpu']) == [jpeg, jpeg]\n"
+        "from dmmt_jpeg_encoder_tpu_torch.parallel import multihost\n"
+        "assert multihost.encode_array_distributed(px, 16, 24, 255, sharded, device='cpu') == jpeg\n"
+        "from dmmt_jpeg_encoder_tpu_torch.utils import capability\n"
+        "assert not capability.kernels_capable('cpu')\n"
         "import os; os.environ['DMMT_P1'] = 'mxu'\n"
         "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
         "from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native\n"
@@ -219,7 +222,7 @@ def test_port_imports_no_jax():
 def test_nvcc_command_line():
     assert [s.name for s in build.sources()] == [
         "block_dct.cu", "block_hist.cu", "emission_pack.cu", "fused_phase1.cu", "histogram.cu",
-        "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "scan_pack.cu", "table_lookup.cu"]
+        "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "probe.cu", "scan_pack.cu", "table_lookup.cu"]
     assert [h.name for h in build.headers()] == ["dct8.cuh"]
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))
