@@ -15,7 +15,10 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    its plain torch version on the card, exactly (all outputs are
    integers); phase 1 on the 4K frame also against the plain version on
    the CPU; kernel, plain and (where one PyTorch call computes the same
-   function) library times at 4K (CUDA events, median of 10 warm runs);
+   function) library times at 4K (the card's time per call: R
+   back-to-back calls between two CUDA events behind a spin kernel that
+   outlasts their enqueue, divided by R, the window at least 2 ms, median
+   of 5 windows; tools/timing.py);
    the slab scan pack on the small odd batch and on the 1080p x 16 group,
    against its plain version and against one scan-pack call per image,
    exactly, and the times of all three on the 1080p group; the grouped
@@ -33,7 +36,12 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    mask (per-image prefixes, and none) on both batch groups, against
    their plain versions and (slab) one masked scan-pack call per image,
    exactly, with kernel, plain and mask-free times at 4K and 1080p x 16;
-   the capability probe (x + 1 on [8, 128] float32) against x + 1;
+   the capability probe (x + 1 on [8, 128] float32) against x + 1; the
+   block DCT and the lookup on the edge shapes of their tilings
+   (tests/torch_port_fixtures.py: N of 1, a tile less one, a tile, a tile
+   and one, three tiles and five; G, m, T around the lookup's int4
+   vectors, with symbols -1, T and T + 1), each also from a view 4 bytes
+   past a 16-byte boundary, against their plain versions, exactly;
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -56,7 +64,10 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
 5. the sharded encode (parallel/sharding.py), its shards on card 0 (a
    device list that repeats it), each path's launches counted with the
    capability probe among them: every single-image fixture at
-   num_shards 2 and 8, one-dispatch and one_dispatch="off"; the 4K frame
+   num_shards 2 and 8, one-dispatch, one_dispatch="off" (not read on the
+   sharded path, as in the JAX package: one dispatch again) and past a
+   device table bound lowered to one symbol (the two-dispatch encode with
+   the scan-pack kernel, counted); the 4K frame
    at 2 and 4 shards with the staged pack, DMMT_HIST=pallas, the host scan
    backend, DMMT_P1=mxu, FUSED (both the default bytes, as in the JAX
    package's sharded phase 1) and SIMPLE; the 16 x 1080p batch at 2
@@ -221,22 +232,6 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps: int = 10) -> float:
-    """Median device time of fn() in ms over `reps` warm runs."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -410,8 +405,9 @@ def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
     kernel on the luma, Cb and Cr blocks. Returns ({kernel: (kernel,
     plain, library)} callables, {kernel: bound}). The library calls, timed
     only: one torch.einsum computing the same C X C^T products as the
-    matmul plane kernel (no divide, no rounding) and one torch.matmul by M
-    as the block kernel (no rounding), TF32 off; none for the other two."""
+    two plane kernels (their DCT, by matmul or by butterflies; no divide,
+    no rounding) and one torch.matmul by M as the block kernel (no
+    rounding), TF32 off; none for the fused matmul phase 1."""
     from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset
     from dmmt_jpeg_encoder_tpu_torch.ops.dct import dct_matrix
     from dmmt_jpeg_encoder_tpu_torch.ops.fused import (
@@ -436,12 +432,15 @@ def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
     mats = [torch.from_numpy(fused_matrix(q)).to(dev) for _, q in blocks]
     c = torch.from_numpy(dct_matrix()).to(dev)
     groups = [p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8) for p, _ in planes]
+
+    def einsum_dct():
+        return [torch.einsum("vy,aybx,ux->avbu", c, x, c) for x in groups]
+
     cases = {
         "plane_dct": (lambda: [plane_dct_quant(p, q) for p, q in planes],
-                      lambda: [arai_plain(p, q) for p, q in planes], None),
+                      lambda: [arai_plain(p, q) for p, q in planes], einsum_dct),
         "plane_dct_mm": (lambda: [plane_dct_quant_mxu(p, q) for p, q in planes],
-                         lambda: [mxu_dct_reference(p, q) for p, q in planes],
-                         lambda: [torch.einsum("vy,aybx,ux->avbu", c, x, c) for x in groups]),
+                         lambda: [mxu_dct_reference(p, q) for p, q in planes], einsum_dct),
         "phase1_mm": (lambda: fused_phase1(rgb, maxval, lq, cq, preset),
                       lambda: fused_phase1_reference(rgb, maxval, lq, cq, preset), None),
         "block_dct_zz": (lambda: [fused_dct_quantize_zigzag(b, q) for b, q in blocks],
@@ -470,6 +469,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import dmmt_jpeg_encoder_tpu_torch as port
+    from dmmt_jpeg_encoder_tpu_torch import onedispatch
     from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import (
         byteswap_words,
         exact_scan_bits,
@@ -493,8 +493,14 @@ def main() -> int:
         block_histograms_plain,
         fused_block_histograms,
     )
+    from dmmt_jpeg_encoder_tpu_torch.ops.fused import (
+        fused_dct_quantize_zigzag,
+        fused_matrix,
+        fused_reference,
+    )
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_arai import fused_arai_phase1
     from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
+    from dmmt_jpeg_encoder_tpu_torch.ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
     from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
     from dmmt_jpeg_encoder_tpu_torch.pipeline import (
         dc_dpcm,
@@ -503,16 +509,21 @@ def main() -> int:
         ycbcr_planes,
     )
     from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
+    from dmmt_jpeg_encoder_tpu_torch.tools.timing import device_ms
     from dmmt_jpeg_encoder_tpu_torch.utils import capability
     from dmmt_jpeg_encoder_tpu_torch.utils.capability import probe_add_one
     from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native
     from torch_port_fixtures import (
         BATCH_FIXTURES,
+        BLOCK_DCT_EDGE_N,
         FIXTURES,
+        LOOKUP_EDGE_SHAPES,
         ROUTE_BATCHES,
         ROUTES,
         batch_frames,
+        block_dct_edge_inputs,
         fixture_pixels,
+        lookup_edge_inputs,
         load_batch_goldens,
         load_goldens,
         load_route_goldens,
@@ -656,11 +667,11 @@ def main() -> int:
                     raise AssertionError("4k_p420: phase1 kernel != plain on the CPU")
             log("4k_p420: phase1 kernel == plain on the CPU")
             for kname, kf, pf in (("phase1", k1, p1), ("block_hist", k2, p2), ("scan_pack", k3, p3)):
-                timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
+                timing[kname] = (device_ms(kf), device_ms(pf))
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms")
             prefix = masks["prefix"]
-            t_kv = cuda_ms(torch, lambda: fused_pack_words(*args, valid=prefix))
-            t_pv = cuda_ms(torch, lambda: pack_scan_plain(*args, valid=prefix))
+            t_kv = device_ms(lambda: fused_pack_words(*args, valid=prefix))
+            t_pv = device_ms(lambda: pack_scan_plain(*args, valid=prefix))
             n_valid = int(prefix.sum())
             bits_v = fused_pack_words(*args, valid=prefix)[1].tolist()
             b_v = bound(pack_bytes(n_valid, 1, bits_v) + n_scan * 4, n_valid * 64 * OPS_PACK_PER_COEFF)
@@ -669,17 +680,17 @@ def main() -> int:
                 f"bound {b_v[0]:.4f} ms ({b_v[1]})")
             bounds.update(new_kernel_bounds(hist_calls, lookups, emissions, n_words7))
             for kname, (kf, pf, lf) in cases.items():
-                timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
-                library[kname] = cuda_ms(torch, lf) if lf else None
+                timing[kname] = (device_ms(kf), device_ms(pf))
+                library[kname] = device_ms(lf) if lf else None
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms, "
                     f"library {library[kname]}, bound {bounds[kname][0]:.4f} ms")
             bounds.update(dct_bounds)
-            prep_ms = cuda_ms(torch, lambda: ycbcr_planes(rgb, maxval, preset))
+            prep_ms = device_ms(lambda: ycbcr_planes(rgb, maxval, preset))
             log(f"4k ycbcr_planes (color and subsample of the plane and block routes, plain torch "
                 f"before their kernel): {prep_ms:.4f} ms")
             for kname, (kf, pf, lf) in dct_cases.items():
-                timing[kname] = (cuda_ms(torch, kf), cuda_ms(torch, pf))
-                library[kname] = cuda_ms(torch, lf) if lf else None
+                timing[kname] = (device_ms(kf), device_ms(pf))
+                library[kname] = device_ms(lf) if lf else None
                 log(f"4k {kname}: kernel {timing[kname][0]:.4f} ms, plain {timing[kname][1]:.4f} ms, "
                     f"library {library[kname]}, bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
             n_blocks, n_px = int(scan.shape[0]), rgb.numel() // 3
@@ -748,9 +759,9 @@ def main() -> int:
         log(f"{name}: scan_pack_slab with [{b}, {n_scan}] valid masks (per-image prefixes, none) "
             f"== plain == {b} scan_pack calls with valid")
         if name == "batch_1080p_p420":
-            t_kv = cuda_ms(torch, lambda: fused_pack_words_slab(scans, stride, lpm, codes, lens,
+            t_kv = device_ms(lambda: fused_pack_words_slab(scans, stride, lpm, codes, lens,
                                                                 n_words, valid=valid))
-            t_pv = cuda_ms(torch, lambda: pack_scan_slab_plain(scans, stride, lpm, codes, lens,
+            t_pv = device_ms(lambda: pack_scan_slab_plain(scans, stride, lpm, codes, lens,
                                                                n_words, valid=valid))
             n_valid = int(valid.sum())
             bits_v = fused_pack_words_slab(scans, stride, lpm, codes, lens, n_words,
@@ -760,7 +771,7 @@ def main() -> int:
             log(f"1080p x {b} scan_pack_slab with a [B, N] valid mask ({n_valid} of {b * n_scan} "
                 f"blocks): kernel {t_kv:.4f} ms, plain {t_pv:.4f} ms, bound {b_v[0]:.4f} ms "
                 f"({b_v[1]})")
-            t_k4, t_plain, t_each = cuda_ms(torch, k4), cuda_ms(torch, p4), cuda_ms(torch, k3_each)
+            t_k4, t_plain, t_each = device_ms(k4), device_ms(p4), device_ms(k3_each)
             timing["scan_pack_slab"] = (t_k4, t_plain)
             n_blocks = b * int(scans.shape[1])
             bounds["scan_pack_slab"] = bound(pack_bytes(n_blocks, b, wk[1].tolist()),
@@ -791,7 +802,7 @@ def main() -> int:
     group_bounds = new_kernel_bounds(hist_calls, lookups, emissions, n_words7)
     for kname, (kf, pf, lf) in cases.items():
         check_equal(torch, errs, kname, "batch_1080p_p420 fused", kf(), pf())
-        t_k, t_p, t_l = cuda_ms(torch, kf), cuda_ms(torch, pf), cuda_ms(torch, lf) if lf else None
+        t_k, t_p, t_l = device_ms(kf), device_ms(pf), device_ms(lf) if lf else None
         log(f"1080p x {b} fused {kname}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_l}, "
             f"bound {group_bounds[kname][0]:.4f} ms ({group_bounds[kname][1]})")
     log(f"batch_1080p_p420 fused: grouped kernels == plain ({b} x {int(luma.shape[1])} luma blocks, "
@@ -805,12 +816,38 @@ def main() -> int:
     if not torch.equal(probe_out, x + 1):
         raise AssertionError("probe kernel != plain (x + 1)")
     errs["probe"] = float((probe_out - (x + 1)).abs().max().item())
-    timing["probe"] = (cuda_ms(torch, lambda: probe_add_one(x), reps=50),
-                       cuda_ms(torch, lambda: x + 1, reps=50))
-    library["probe"] = cuda_ms(torch, lambda: torch.add(x, 1.0), reps=50)
+    timing["probe"] = (device_ms(lambda: probe_add_one(x)), device_ms(lambda: x + 1))
+    library["probe"] = device_ms(lambda: torch.add(x, 1.0))
     bounds["probe"] = bound(2 * x.numel() * 4, x.numel())
     log(f"probe: kernel == plain; kernel {timing['probe'][0]:.4f} ms, plain {timing['probe'][1]:.4f} "
         f"ms, library (torch.add) {library['probe']:.4f} ms, bound {bounds['probe'][0]:.7f} ms")
+
+    # the edge shapes of the block DCT's and the lookup's tilings
+    # (tests/torch_port_fixtures.py), each also through a view that starts
+    # 4 bytes past a 16-byte boundary (the kernels' unaligned paths),
+    # against the plain versions, exactly
+    for n in BLOCK_DCT_EDGE_N:
+        blocks_np, q = block_dct_edge_inputs(n)
+        x = torch.from_numpy(blocks_np).to(dev)
+        want = fused_reference(x, torch.from_numpy(fused_matrix(q)).to(dev))
+        shifted = torch.empty(n * 64 + 1, dtype=torch.float32, device=dev)
+        shifted[1:] = x.reshape(-1)
+        for label, xin in (("", x), (" unaligned", shifted[1:].reshape(n, 8, 8))):
+            check_equal(torch, errs, "block_dct_zz", f"edge N={n}{label}",
+                        fused_dct_quantize_zigzag(xin, q), want)
+    for g, m, t in LOOKUP_EDGE_SHAPES:
+        sym_np, tab_np = lookup_edge_inputs(g, m, t, in_range=False)
+        sym = torch.from_numpy(sym_np).to(dev)
+        tab = torch.from_numpy(tab_np.astype(np.int32)).to(dev)
+        want = table_lookup_grouped_plain(sym, tab)
+        shifted = torch.empty(g * m + 1, dtype=torch.int32, device=dev)
+        shifted[1:] = sym.reshape(-1)
+        for label, sin in (("", sym), (" unaligned", shifted[1:].reshape(g, m))):
+            check_equal(torch, errs, "table_lookup", f"edge G={g} m={m} T={t}{label}",
+                        table_lookup_grouped(sin, tab), want)
+    log(f"edge shapes: block_dct_zz == plain for N in {BLOCK_DCT_EDGE_N}; table_lookup == plain "
+        f"on {len(LOOKUP_EDGE_SHAPES)} (G, m, T) shapes with symbols -1, T, T + 1; both also "
+        "from unaligned views")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}
@@ -992,15 +1029,40 @@ def main() -> int:
     def sharded_cfg(cfg, n, **kw):
         return dataclasses.replace(cfg, num_shards=n, **kw)
 
+    # one_dispatch="off" is not read on the sharded path (as in the JAX
+    # package); the two-dispatch arm with the scan-pack kernel runs for
+    # images past the device table build's bound, here lowered to 1 symbol
+    two_dispatch_runs = []
+    real_finish = sharding._finish_twodispatch
+
+    def counted_finish(state):
+        two_dispatch_runs.append(1)
+        return real_finish(state)
+
+    sharding._finish_twodispatch = counted_finish
     for n in (2, 8):
-        for label, kw in (("one-dispatch", {}), ("one_dispatch=off", {"one_dispatch": "off"})):
-            outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}", lambda: {
-                name: port.encode_array(images[name], f["maxval"], sharded_cfg(configs[name], n, **kw),
-                                        device=on_card(n))
-                for name, f in FIXTURES.items()
-            }, sharded_launches(n, 1, 1, times=n_fix))
+        for label, kw, table_bound, two in (
+            ("one-dispatch", {}, onedispatch.MAX_DEVICE_TABLE_SYMBOLS, 0),
+            ('one_dispatch="off" (not read: one dispatch)', {"one_dispatch": "off"},
+             onedispatch.MAX_DEVICE_TABLE_SYMBOLS, 0),
+            ("past a table bound of 1 symbol (two dispatches, scan-pack arm)", {}, 1, n_fix),
+        ):
+            saved_bound, onedispatch.MAX_DEVICE_TABLE_SYMBOLS = onedispatch.MAX_DEVICE_TABLE_SYMBOLS, table_bound
+            two_dispatch_runs.clear()
+            try:
+                outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}", lambda: {
+                    name: port.encode_array(images[name], f["maxval"], sharded_cfg(configs[name], n, **kw),
+                                            device=on_card(n))
+                    for name, f in FIXTURES.items()
+                }, sharded_launches(n, 1, 1, times=n_fix))
+            finally:
+                onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved_bound
+            if len(two_dispatch_runs) != two:
+                raise AssertionError(f"sharded n={n} {label}: {len(two_dispatch_runs)} two-dispatch "
+                                     f"encodes, expected {two}")
             for name, jpeg in outputs.items():
                 check_golden(name, jpeg, f"sharded n={n} {label}")
+    sharding._finish_twodispatch = real_finish
     simple_golden = route_goldens["dct_simple"]["4k_p420"]["jpeg_sha256"]
     for n in (2, 4):
         for label, env, kw, expect, want in (

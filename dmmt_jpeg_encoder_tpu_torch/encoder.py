@@ -2,8 +2,9 @@
 
 Counterpart of dmmt_jpeg_encoder_tpu.encoder. `encode_array` runs the
 one-dispatch encode (onedispatch.py) by default, and the two-dispatch
-encode for one_dispatch="off", for scan_backend="host" and for images past
-the device table build's exactness bound: the device phase
+encode for one_dispatch="off", under DMMT_NO_ONEDISPATCH, for
+scan_backend="host" and for images past the device table build's
+exactness bound: the device phase
 (pipeline.run_device_pipeline), one fetch of the four histograms and the
 host package-merge tables (HuffmanTables.from_histograms), then the device
 pack or the host C/Python packer (pack_scan). `encode_batch` runs many
@@ -128,10 +129,11 @@ def _resolve_backend(config: EncoderConfig) -> str:
 
 def _use_one_dispatch(config: EncoderConfig, height: int, width: int) -> bool:
     """One-dispatch encode (device-built tables and the pack in one
-    enqueue): the device backend, one_dispatch not "off", and the image
-    within the device table build's exactness bound. Otherwise the
-    two-dispatch path."""
-    return (config.one_dispatch != "off" and _resolve_backend(config) == "device"
+    enqueue): the device backend, one_dispatch not "off", DMMT_NO_ONEDISPATCH
+    unset or empty (as the JAX package reads it), and the image within the
+    device table build's exactness bound. Otherwise the two-dispatch path."""
+    return (config.one_dispatch != "off" and not os.environ.get("DMMT_NO_ONEDISPATCH")
+            and _resolve_backend(config) == "device"
             and one_dispatch_supported(height, width, config.chroma_subsampling))
 
 

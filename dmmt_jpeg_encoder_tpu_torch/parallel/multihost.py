@@ -127,9 +127,9 @@ def encode_array_distributed(
     (sharding.shard_devices of num_shards / process_count()). Every process
     must call this with the same image geometry and config; process 0
     returns the JPEG bytes, every other process None. Runs the one-dispatch
-    sharded encode only, as the JAX package does; NotImplementedError where
-    that does not apply (one_dispatch="off", DMMT_NO_FUSED_PACK, an image
-    past the device table build's bound)."""
+    sharded encode only, as the JAX package does (one_dispatch is not
+    read); NotImplementedError where that does not apply
+    (DMMT_NO_FUSED_PACK, an image past the device table build's bound)."""
     from ..bitstream.device_pack import check_bits_enabled, exact_scan_bits
     from ..encoder import _jpeg
     from ..onedispatch import tables_from_spec
@@ -149,7 +149,7 @@ def encode_array_distributed(
 
     if not onedispatch_allowed(config, height, width):
         raise NotImplementedError("the multi-process encode runs the one-dispatch sharded "
-                                  "encode only (one_dispatch, DMMT_NO_FUSED_PACK, image size)")
+                                  "encode only (DMMT_NO_FUSED_PACK, image size)")
     geom, spp = _distributed_geometry(height, width, config)
     devices = shard_devices(device, spp)
     pid = process_index()

@@ -39,9 +39,9 @@ bytes, as in the JAX package.
 Paths, as in the JAX package: `start_sharded_encode` /
 `finish_sharded_encode` run the one-dispatch encode (device tables from
 the summed histograms, the scan-pack kernel per shard) where the devices
-run the kernels, the fused pack is on (no DMMT_NO_FUSED_PACK), the image
-is within the device table build's bound and one_dispatch is not "off";
-otherwise the two-dispatch encode (host tables from the summed
+run the kernels, the fused pack is on (no DMMT_NO_FUSED_PACK) and the
+image is within the device table build's bound, whatever one_dispatch
+says; otherwise the two-dispatch encode (host tables from the summed
 histograms, each shard's exact bits from its own histograms, the
 scan-pack kernel or the staged pack per shard). `run_sharded_pipeline`
 returns the blocks with the alignment blocks dropped and the summed
@@ -420,12 +420,14 @@ def kernels_on(devices: list[torch.device]) -> bool:
 
 
 def onedispatch_allowed(config: EncoderConfig, height: int, width: int) -> bool:
-    """one_dispatch not "off", DMMT_NO_FUSED_PACK not set and the image
-    within the device table build's bound."""
+    """DMMT_NO_FUSED_PACK not set and the image within the device table
+    build's bound. As in the JAX package's sharded routing, one_dispatch
+    and DMMT_NO_ONEDISPATCH are not read: the sharded two-dispatch encode
+    runs only past the bound, under DMMT_NO_FUSED_PACK, or where the
+    devices do not run the kernels."""
     from ..onedispatch import one_dispatch_supported
 
-    return (config.one_dispatch != "off" and _use_fused_pack()
-            and one_dispatch_supported(height, width, config.chroma_subsampling))
+    return _use_fused_pack() and one_dispatch_supported(height, width, config.chroma_subsampling)
 
 
 def use_sharded_onedispatch(config: EncoderConfig, height: int, width: int,

@@ -3,6 +3,7 @@ real torch.distributed processes (gloo, on the CPU, with jax made
 unimportable) against the JAX package's single-device encode_array, byte
 for byte, plus the single-process form and the wiring helpers."""
 
+import dataclasses
 import os
 import socket
 import subprocess
@@ -15,6 +16,7 @@ import pytest
 import dmmt_jpeg_encoder_tpu as dj
 import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu.parallel import multihost as jmh
+from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
 from dmmt_jpeg_encoder_tpu_torch.parallel import multihost as mh
 
 REPO = Path(__file__).resolve().parent.parent
@@ -93,14 +95,23 @@ def test_local_row_ranges():
     assert mh.process_count() == 1 and mh.process_index() == 0 and mh.is_coordinator()
 
 
-def test_encode_array_distributed_single_process():
+def test_encode_array_distributed_single_process(monkeypatch):
+    """one_dispatch="off" is not read, as in the JAX package: the same
+    bytes; DMMT_NO_FUSED_PACK and an image past the device table bound
+    raise, where the JAX package raises."""
     px = _pixels(3, 57, 33)
     cfg = dt.EncoderConfig(chroma_subsampling=dt.ChromaSubsamplingPreset.P422, num_shards=3)
     want = dj.encode_array(px, 255, dj.EncoderConfig(chroma_subsampling=dj.ChromaSubsamplingPreset.P422))
     assert mh.encode_array_distributed(px, 57, 33, 255, cfg, device="cpu") == want
+    off = dataclasses.replace(cfg, one_dispatch="off")
+    assert mh.encode_array_distributed(px, 57, 33, 255, off, device="cpu") == want
+    monkeypatch.setenv("DMMT_NO_FUSED_PACK", "1")
     with pytest.raises(NotImplementedError):
-        mh.encode_array_distributed(px, 57, 33, 255,
-                                    dt.EncoderConfig(num_shards=3, one_dispatch="off"), device="cpu")
+        mh.encode_array_distributed(px, 57, 33, 255, cfg, device="cpu")
+    monkeypatch.delenv("DMMT_NO_FUSED_PACK")
+    monkeypatch.setattr(tod, "MAX_DEVICE_TABLE_SYMBOLS", 64 * 10)
+    with pytest.raises(NotImplementedError):
+        mh.encode_array_distributed(px, 57, 33, 255, cfg, device="cpu")
 
 
 def test_initialize_is_noop_without_init_method():

@@ -104,8 +104,9 @@ def test_encode_array_sharded_kernel_routes_match_jax(preset, shape, n, capable,
                                                       monkeypatch):
     """Where the devices run the kernels: one dispatch (block histograms
     with valid counts, one table build, a masked scan pack per shard),
-    one_dispatch="off" (the scan-pack kernel's arm), DMMT_NO_FUSED_PACK
-    (the staged arm) and DMMT_HIST=pallas (masked weighted histograms)."""
+    one_dispatch="off" (not read on the sharded path, as in the JAX
+    package: one dispatch again), DMMT_NO_FUSED_PACK (the staged arm) and
+    DMMT_HIST=pallas (masked weighted histograms)."""
     px = _image(12, shape)
     want = _want(px, _cfg(preset))
     assert _port(px, _cfg(preset, n)) == want
@@ -113,14 +114,34 @@ def test_encode_array_sharded_kernel_routes_match_jax(preset, shape, n, capable,
                      "fused_pack_words": n, "fused_pack_words_slab": 0, "staged_pack_words": 0,
                      "device_tables": 1}
     assert _port(px, _cfg(preset, n, one_dispatch="off")) == want
-    assert calls["fused_pack_words"] == 2 * n and calls["device_tables"] == 1
+    assert calls == {"fused_block_histograms": 6 * n, "symbol_histograms": 0,
+                     "fused_pack_words": 2 * n, "fused_pack_words_slab": 0, "staged_pack_words": 0,
+                     "device_tables": 2}
     monkeypatch.setenv("DMMT_NO_FUSED_PACK", "1")
     assert _port(px, _cfg(preset, n)) == want
-    assert calls["staged_pack_words"] == n and calls["device_tables"] == 1
+    assert calls["staged_pack_words"] == n and calls["device_tables"] == 2
     monkeypatch.delenv("DMMT_NO_FUSED_PACK")
     monkeypatch.setenv("DMMT_HIST", "pallas")
     assert _port(px, _cfg(preset, n)) == want
-    assert calls["symbol_histograms"] == 2 * n and calls["device_tables"] == 2
+    assert calls["symbol_histograms"] == 2 * n and calls["device_tables"] == 3
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("one_dispatch", ["auto", "off"])
+def test_sharded_images_past_the_table_bound_take_the_scan_pack_arm(n, one_dispatch, capable,
+                                                                    calls, monkeypatch):
+    """An image past the device table build's bound (a small
+    MAX_DEVICE_TABLE_SYMBOLS) takes the sharded two-dispatch encode with
+    the scan-pack kernel per shard, as the JAX package reaches
+    _compiled_shard_pack there, whatever one_dispatch says."""
+    from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
+
+    monkeypatch.setattr(tod, "MAX_DEVICE_TABLE_SYMBOLS", 64 * 10)
+    px = _image(13, (40, 56))
+    assert _port(px, _cfg("P420", n, one_dispatch=one_dispatch)) == _want(px, _cfg("P420"))
+    assert calls == {"fused_block_histograms": 3 * n, "symbol_histograms": 0,
+                     "fused_pack_words": n, "fused_pack_words_slab": 0, "staged_pack_words": 0,
+                     "device_tables": 0}
 
 
 @pytest.mark.parametrize("route", ["p1_mxu", "p1_fused1", "simple", "separated", "fused"])

@@ -190,7 +190,10 @@ def test_sharded_slab_gate_and_bound(capable, monkeypatch):
     monkeypatch.setenv("DMMT_SLAB_MAX_ROWS", "543")
     assert tenc.slab_depth(hd, cfg, devices) == 1  # a shard holds 544 rows
     monkeypatch.delenv("DMMT_SLAB_MAX_ROWS")
-    assert tenc.slab_depth(hd, dataclasses.replace(cfg, one_dispatch="off"), devices) == 1
+    # one_dispatch is not read on the sharded path, as in the JAX package
+    assert tenc.slab_depth(hd, dataclasses.replace(cfg, one_dispatch="off"), devices) == 3
+    monkeypatch.setenv("DMMT_NO_FUSED_PACK", "1")
+    assert tenc.slab_depth(hd, cfg, devices) == 1
 
 
 def test_shard_devices():

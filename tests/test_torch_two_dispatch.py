@@ -361,6 +361,29 @@ def test_images_past_the_device_table_bound_take_two_dispatch(monkeypatch, batch
         tod.start_one_dispatch(px, 255, port, lq, cq, device="cpu")
 
 
+@pytest.mark.parametrize("batch", [False, True])
+def test_dmmt_no_onedispatch_takes_two_dispatch(monkeypatch, batch):
+    """DMMT_NO_ONEDISPATCH=1 sends encode_array and encode_batch down the
+    two-dispatch path, as the JAX package's _use_one_dispatch reads it;
+    the bytes stay the JAX package's."""
+    monkeypatch.setenv("DMMT_NO_ONEDISPATCH", "1")
+    ran = []
+    real = tenc.run_device_pipeline
+    monkeypatch.setattr(tenc, "run_device_pipeline", lambda *a, **k: ran.append(1) or real(*a, **k))
+    monkeypatch.setattr(tenc, "start_one_dispatch", lambda *a, **k: pytest.fail("one dispatch ran"))
+    cfg = _jax_cfg("P420", 75)
+    images = [_image(18 + i, (21, 30)) for i in range(3)]
+    if batch:
+        assert tenc.slab_depth(images, config_from_jax(cfg)) == 1
+        assert dt.encode_batch(images, 255, config_from_jax(cfg), device="cpu") == \
+            [_want(p, 255, cfg) for p in images]
+        assert len(ran) == 3
+    else:
+        assert dt.encode_array(images[0], 255, config_from_jax(cfg), device="cpu") == \
+            _want(images[0], 255, cfg)
+        assert len(ran) == 1
+
+
 def test_encode_batch_two_dispatch_per_image(monkeypatch):
     """one_dispatch="off" and the host backend run encode_batch per image
     through the two-dispatch path (the JAX package's "std" arm)."""

@@ -129,6 +129,46 @@ def random_blocks(seed: int, n: int = 600) -> np.ndarray:
     return blocks.astype(np.int16)
 
 
+# Edge shapes of the tilings of the block DCT kernel and the table lookup
+# kernel, shared by tests/test_torch_kernel_edges.py (the plain versions
+# against the JAX functions) and chip_smoke.py (the kernels against the
+# plain versions on the card). BLOCK_DCT_TILE is the block DCT kernel's
+# tile of blocks (TILE in dmmt_jpeg_encoder_tpu_torch/csrc/block_dct.cu).
+BLOCK_DCT_TILE = 128
+BLOCK_DCT_EDGE_N = (1, BLOCK_DCT_TILE - 1, BLOCK_DCT_TILE, BLOCK_DCT_TILE + 1,
+                    3 * BLOCK_DCT_TILE + 5)
+# (G, m, T): m around the lookup kernel's four-entry (int4) vectors, so that
+# every row after the first starts unaligned when m % 4 != 0
+LOOKUP_EDGE_K = 3000
+LOOKUP_EDGE_SHAPES = tuple(
+    (g, m, t)
+    for g in (1, 3, 16)
+    for m in (1, 3, 5, 4 * LOOKUP_EDGE_K + 1, 4 * LOOKUP_EDGE_K + 2, 4 * LOOKUP_EDGE_K + 3)
+    for t in (1, 32, 512)
+)
+
+
+def block_dct_edge_inputs(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """float32 [n, 8, 8] level-shifted samples in sixteenths (exact in
+    float32) and a raster quantization table [64] (uint16, 1..63)."""
+    rng = np.random.default_rng(1000 + n)
+    blocks = (rng.integers(-128 * 16, 128 * 16, (n, 8, 8)) / 16).astype(np.float32)
+    return blocks, rng.integers(1, 64, 64).astype(np.uint16)
+
+
+def lookup_edge_inputs(g: int, m: int, t: int, in_range: bool) -> tuple[np.ndarray, np.ndarray]:
+    """int32 [g, m] symbols and uint32 [g, t] tables of (code << 8 | len)
+    words below 2^24. With in_range False the symbols also hold -1, t and
+    t + 1 (each row starts with -1 and ends with t)."""
+    rng = np.random.default_rng((g * 1009 + m) * 1013 + t)
+    tables = rng.integers(0, 1 << 24, (g, t)).astype(np.uint32)
+    if in_range:
+        return rng.integers(0, t, (g, m)).astype(np.int32), tables
+    symbols = rng.integers(-1, t + 2, (g, m)).astype(np.int32)
+    symbols[:, 0], symbols[:, -1] = -1, t
+    return symbols, tables
+
+
 def sha256(data: bytes | np.ndarray) -> str:
     if isinstance(data, np.ndarray):
         data = np.ascontiguousarray(data).tobytes()
