@@ -41,7 +41,15 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    (tests/torch_port_fixtures.py: N of 1, a tile less one, a tile, a tile
    and one, three tiles and five; G, m, T around the lookup's int4
    vectors, with symbols -1, T and T + 1), each also from a view 4 bytes
-   past a 16-byte boundary, against their plain versions, exactly;
+   past a 16-byte boundary, against their plain versions, exactly; the
+   same for the scan pack (N of 1 and around its 128-block tile, blocks
+   with no AC, all 63 AC, zero runs of 15-48, only position 63, DC and AC
+   of the largest categories, tiles past its shared word buffer beside
+   tiles within it; `valid` all, none, alternating and single; the slab
+   form at B = 1 and 3, also against one scan-pack call per image, tables
+   built from each case's histograms) and for phase 1 (1x1 to 333x1001,
+   rows that are no whole 16-byte chunks, each preset, 16-bit samples,
+   maxval 1);
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -518,12 +526,22 @@ def main() -> int:
         BLOCK_DCT_EDGE_N,
         FIXTURES,
         LOOKUP_EDGE_SHAPES,
+        PHASE1_EDGE_CASES,
         ROUTE_BATCHES,
         ROUTES,
+        SCAN_PACK_EDGE_CASES,
+        SCAN_PACK_EDGE_MASKS,
+        SCAN_PACK_SLAB_EDGES,
+        SCAN_PACK_TILE,
+        SCAN_PACK_TILE_WORDS,
         batch_frames,
         block_dct_edge_inputs,
         fixture_pixels,
         lookup_edge_inputs,
+        phase1_edge_pixels,
+        scan_pack_edge_blocks,
+        scan_pack_edge_mask,
+        scan_pack_tables,
         load_batch_goldens,
         load_goldens,
         load_route_goldens,
@@ -848,6 +866,70 @@ def main() -> int:
     log(f"edge shapes: block_dct_zz == plain for N in {BLOCK_DCT_EDGE_N}; table_lookup == plain "
         f"on {len(LOOKUP_EDGE_SHAPES)} (G, m, T) shapes with symbols -1, T, T + 1; both also "
         "from unaligned views")
+
+    # the scan pack's and phase 1's edge cases (tests/torch_port_fixtures.py),
+    # each also from a view 4 bytes past a 16-byte boundary, against the
+    # plain versions, exactly
+    def unaligned(t):
+        n_bytes = t.numel() * t.element_size()
+        flat = torch.empty(n_bytes + 32, dtype=torch.uint8, device=dev)
+        off = (16 - flat.data_ptr() % 16) % 16 + 4
+        view = flat[off : off + n_bytes]
+        view.copy_(t.reshape(-1).view(torch.uint8))
+        view = view.view(t.dtype).view(t.shape)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    tile_arms = {}
+    for case in SCAN_PACK_EDGE_CASES:
+        blocks_np, stride, lpm = scan_pack_edge_blocks(case)
+        codes, lens = (torch.from_numpy(t).to(dev) for t in scan_pack_tables(blocks_np, stride, lpm))
+        x = torch.from_numpy(blocks_np).to(dev)
+        n_words = x.shape[0] * 64 + 2
+        want = pack_scan_plain(x, stride, lpm, codes, lens, n_words)
+        for label, xin in (("", x), (" unaligned", unaligned(x))):
+            check_equal(torch, errs, "scan_pack", f"edge {case}{label}",
+                        fused_pack_words(xin, stride, lpm, codes, lens, n_words), want)
+        # which arm each tile takes: over-full past the shared word buffer
+        tiles = [int(pack_scan_plain(x[i : i + SCAN_PACK_TILE], stride, lpm, codes, lens,
+                                     SCAN_PACK_TILE * 64 + 2)[1]) for i in range(0, x.shape[0], SCAN_PACK_TILE)]
+        tile_arms[case] = ["over-full" if b > 32 * (SCAN_PACK_TILE_WORDS - 1) else "shared" for b in tiles]
+        if case == "tiles3+5":
+            for mname in SCAN_PACK_EDGE_MASKS:
+                mask = torch.from_numpy(scan_pack_edge_mask(mname, x.shape[0])).to(dev)
+                check_equal(torch, errs, "scan_pack", f"edge {case} valid {mname}",
+                            fused_pack_words(x, stride, lpm, codes, lens, n_words, valid=mask),
+                            pack_scan_plain(x, stride, lpm, codes, lens, n_words, valid=mask))
+    if "over-full" not in tile_arms["overfull"] or "shared" not in tile_arms["overfull"]:
+        raise AssertionError(f"scan_pack edge: the over-full case's tiles take {tile_arms['overfull']}")
+    for slab_cases in SCAN_PACK_SLAB_EDGES:
+        cases = [scan_pack_edge_blocks(c) for c in slab_cases]
+        stride, lpm = cases[0][1:]
+        tabs = [scan_pack_tables(*c) for c in cases]
+        xs = torch.from_numpy(np.stack([c[0] for c in cases])).to(dev)
+        codes, lens = (torch.from_numpy(np.stack([t[i] for t in tabs])).to(dev) for i in (0, 1))
+        n_words = xs.shape[1] * 64 + 2
+        want = pack_scan_slab_plain(xs, stride, lpm, codes, lens, n_words)
+        for label, xin in (("", xs), (" unaligned", unaligned(xs))):
+            got = fused_pack_words_slab(xin, stride, lpm, codes, lens, n_words)
+            check_equal(torch, errs, "scan_pack_slab", f"edge B={len(cases)}{label}", got, want)
+        singles = [fused_pack_words(xs[i], stride, lpm, codes[i], lens[i], n_words) for i in range(len(cases))]
+        check_equal(torch, errs, "scan_pack_slab", f"edge B={len(cases)} vs scan_pack", got,
+                    (torch.stack([w for w, _ in singles]), torch.cat([t for _, t in singles])))
+    log(f"edge cases: scan_pack == plain on {len(SCAN_PACK_EDGE_CASES)} cases (tiles' arms "
+        f"{tile_arms}), with valid masks {SCAN_PACK_EDGE_MASKS}; scan_pack_slab == plain == scan_pack "
+        f"for B in {[len(c) for c in SCAN_PACK_SLAB_EDGES]}; all also from unaligned views")
+    for h, w, pname, maxval in PHASE1_EDGE_CASES:
+        preset = port.ChromaSubsamplingPreset(pname)
+        lq, cq = (torch.from_numpy(t).to(dev) for t in quantization_table_pair(
+            port.QuantizationTablePreset.SPECIFICATION, None))
+        rgb = torch.from_numpy(phase1_edge_pixels(h, w, maxval)).to(dev)
+        want = phase1_zigzag_blocks(rgb, maxval, lq, cq, preset)
+        for label, xin in (("", rgb), (" unaligned", unaligned(rgb))):
+            check_equal(torch, errs, "phase1", f"edge {h}x{w} {pname} maxval {maxval}{label}",
+                        fused_arai_phase1(xin, maxval, lq, cq, preset), want)
+    log(f"edge cases: phase1 == plain on {len(PHASE1_EDGE_CASES)} (H, W, preset, maxval) cases, "
+        "also from unaligned views")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}

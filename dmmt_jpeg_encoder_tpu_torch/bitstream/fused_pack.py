@@ -2,9 +2,12 @@
 
 Counterpart of dmmt_jpeg_encoder_tpu.bitstream.fused_pack
 (`fused_pack_words`, `fused_pack_words_slab`). The CUDA kernel is
-csrc/scan_pack.cu (three launches: block bit lengths, a device-wide
-exclusive scan of the block offsets, emission with atomicOr); its slab
-entry point runs the same launches over B images at once. The plain
+csrc/scan_pack.cu (one launch over 128-block tiles: each tile codes its
+blocks, finds its bit offset by decoupled look-back over the tiles before
+it, and assembles its words in shared memory); its slab entry point runs
+the same launch over B images at once. Each call zeroes the word buffer
+and, behind it in the same fill, the tiles' look-back states
+(zeroed_buffers). The plain
 versions are device_pack.pack_scan_plain (block_emissions + pack_to_words
 + byteswap_words) and device_pack.pack_scan_slab_plain. The TPU kernel
 swept compacted present-symbol tables from SMEM; here the four flat
@@ -25,7 +28,20 @@ import torch
 from ..kernels import build
 from .device_pack import pack_scan_plain, pack_scan_slab_plain
 
-CHUNK = 256  # blocks per CTA in csrc/scan_pack.cu
+TILE = 128  # blocks per CTA in csrc/scan_pack.cu
+
+
+def zeroed_buffers(n_images: int, n_words: int, n_blocks: int, dev: torch.device,
+                   tile: int = TILE) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One zero fill for the words (int32 [n_images, n_words]) and, behind
+    them, the kernel's look-back state (int64 [n_images, ceil(n_blocks /
+    tile) + 1]): (the whole buffer, words, state). The words are a view of
+    the buffer's head."""
+    head = n_images * n_words + (n_images * n_words) % 2  # the state starts 8-byte aligned
+    n_state = n_images * (-(-n_blocks // tile) + 1)
+    buf = torch.zeros(head + 2 * n_state, dtype=torch.int32, device=dev)
+    words = buf[: n_images * n_words].view(n_images, n_words)
+    return buf, words, buf[head:].view(torch.int64).view(n_images, -1)
 
 
 def _mask_arg(valid: torch.Tensor | None, dev: torch.device) -> torch.Tensor | None:
@@ -70,17 +86,14 @@ def fused_pack_words(
     if codes.shape != (4, 256) or lens.shape != (4, 256):
         raise ValueError("expected [4, 256] code and length tables")
     mask = _mask_arg(valid, dev)
-    n_chunks = -(-n // CHUNK)
-    words = torch.zeros(n_words, dtype=torch.int32, device=dev)
-    block_bits = torch.empty(n, dtype=torch.int32, device=dev)
-    chunk_sums = torch.empty(n_chunks, dtype=torch.int64, device=dev)
-    chunk_base = torch.empty(n_chunks, dtype=torch.int64, device=dev)
+    _, words, state = zeroed_buffers(1, n_words, n, dev)
+    words = words[0]
     total_bits = torch.empty(1, dtype=torch.int64, device=dev)
     lib = build.load()
     err = lib.dmmt_scan_pack(
         scan.data_ptr(), n, stride, luma_per_mcu, codes.data_ptr(), lens.data_ptr(),
-        None if mask is None else mask.data_ptr(), block_bits.data_ptr(), chunk_sums.data_ptr(),
-        chunk_base.data_ptr(), words.data_ptr(), n_words, total_bits.data_ptr(),
+        None if mask is None else mask.data_ptr(), state.data_ptr(), words.data_ptr(),
+        n_words, total_bits.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_scan_pack")
@@ -123,17 +136,13 @@ def fused_pack_words_slab(
     codes = codes.to(device=dev, dtype=torch.int32).contiguous()
     lens = lens.to(device=dev, dtype=torch.int32).contiguous()
     mask = _mask_arg(valid, dev)
-    n_chunks = -(-n // CHUNK)
-    words = torch.zeros((b, n_words), dtype=torch.int32, device=dev)
-    block_bits = torch.empty((b, n), dtype=torch.int32, device=dev)
-    chunk_sums = torch.empty((b, n_chunks), dtype=torch.int64, device=dev)
-    chunk_base = torch.empty((b, n_chunks), dtype=torch.int64, device=dev)
+    _, words, state = zeroed_buffers(b, n_words, n, dev)
     total_bits = torch.empty(b, dtype=torch.int64, device=dev)
     lib = build.load()
     err = lib.dmmt_scan_pack_slab(
         scans.data_ptr(), b, n, stride, luma_per_mcu, codes.data_ptr(), lens.data_ptr(),
-        None if mask is None else mask.data_ptr(), block_bits.data_ptr(), chunk_sums.data_ptr(),
-        chunk_base.data_ptr(), words.data_ptr(), n_words, total_bits.data_ptr(),
+        None if mask is None else mask.data_ptr(), state.data_ptr(), words.data_ptr(),
+        n_words, total_bits.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_scan_pack_slab")

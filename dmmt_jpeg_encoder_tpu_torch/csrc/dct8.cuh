@@ -8,7 +8,8 @@
 //
 // - arai8: the Arai-Agui-Nakajima butterfly (src/cosine_transform/arai.rs
 //   op order) with the six fused products of ops/dct.arai_butterfly
-//   (ROADMAP C1); the constants come from ops/fused_arai.kernel_constants.
+//   (ROADMAP C1), on eight registers or on eight strided values; the
+//   constants come from ops/fused_arai.kernel_constants.
 // - contract8: the 8-term contraction of the matmul DCTs (DMMT_P1=mxu and
 //   fused1, the SIMPLE and SEPARATED variants; ops/dct.contract8): term n
 //   goes to accumulator n mod 4, the first term of each a plain product,
@@ -40,10 +41,10 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
-// One 8-point AAN pass over x[0], x[step], ..., x[7*step], in place.
-__device__ inline void arai8(float* x, int step, const float* k) {
-    const float v00 = x[0], v01 = x[step], v02 = x[2 * step], v03 = x[3 * step];
-    const float v04 = x[4 * step], v05 = x[5 * step], v06 = x[6 * step], v07 = x[7 * step];
+// One 8-point AAN pass over eight values held in registers, in place.
+__device__ __forceinline__ void arai8(float (&x)[8], const float* k) {
+    const float v00 = x[0], v01 = x[1], v02 = x[2], v03 = x[3];
+    const float v04 = x[4], v05 = x[5], v06 = x[6], v07 = x[7];
 
     const float v10 = add(v00, v07), v11 = add(v01, v06), v12 = add(v02, v05);
     const float v13 = add(v03, v04), v14 = sub(v03, v04), v15 = sub(v02, v05);
@@ -65,13 +66,21 @@ __device__ inline void arai8(float* x, int step, const float* k) {
     const float v66 = sub(v55, v46), v67 = sub(v57, v44);
 
     x[0] = mul(v30, k[K_S0 + 0]);
-    x[step] = mul(v65, k[K_S0 + 1]);
-    x[2 * step] = mul(v52, k[K_S0 + 2]);
-    x[3 * step] = mul(v67, k[K_S0 + 3]);
-    x[4 * step] = mul(v31, k[K_S0 + 4]);
-    x[5 * step] = mul(v64, k[K_S0 + 5]);
-    x[6 * step] = mul(v53, k[K_S0 + 6]);
-    x[7 * step] = mul(v66, k[K_S0 + 7]);
+    x[1] = mul(v65, k[K_S0 + 1]);
+    x[2] = mul(v52, k[K_S0 + 2]);
+    x[3] = mul(v67, k[K_S0 + 3]);
+    x[4] = mul(v31, k[K_S0 + 4]);
+    x[5] = mul(v64, k[K_S0 + 5]);
+    x[6] = mul(v53, k[K_S0 + 6]);
+    x[7] = mul(v66, k[K_S0 + 7]);
+}
+
+// The same pass over x[0], x[step], ..., x[7*step], in place.
+__device__ inline void arai8(float* x, int step, const float* k) {
+    float v[8];
+    for (int i = 0; i < 8; ++i) v[i] = x[i * step];
+    arai8(v, k);
+    for (int i = 0; i < 8; ++i) x[i * step] = v[i];
 }
 
 // sum_n x[n] * w[n] over eight values, in XLA's CPU order.

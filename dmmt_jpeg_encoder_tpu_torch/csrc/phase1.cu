@@ -18,18 +18,34 @@
 // docstrings of ops/color.py, ops/geometry.py, ops/dct.py). This kernel
 // calls __fmaf_rn exactly there and explicitly rounded __fmul_rn /
 // __fadd_rn / __fsub_rn / __fdiv_rn everywhere else, and the library is
-// built with --fmad=false so nvcc contracts nothing on its own. All
+// built with --fmad=false so nvcc contracts nothing on its own. Two
+// operations are written otherwise with the same result: 8-bit samples are
+// normalized by a 256-entry table of __fdiv_rn(v, maxval) (the same
+// division, made once per CTA), and the subsample's / 4 and / 2 are
+// __fmul_rn by 0.25 and 0.5 (both round the same real number). All
 // constants arrive as float32 values computed by the torch package, not
 // retyped here. The Arai pass and the rounding live in dct8.cuh, shared
 // with the plane DCT kernel (plane_dct.cu).
 //
-// Bound on the H100: about 5 bytes of device memory per pixel (3 B in,
-// 2 B of int16 out for luma plus a quarter for each chroma plane) against
-// ~150 flops per pixel, so it is bandwidth-bound. Design: one CTA owns
-// MCUS_PER_CTA whole MCUs; pixels are read once, and every float32
-// intermediate (color planes, subsampled chroma, both DCT passes) stays in
-// shared memory. Padding is done in the integer domain: a read past H or W
-// yields 0, and 0 / maxval is exactly 0.0, matching the reference's black
+// Bound on the H100: 3 bytes in (6 for 16-bit samples) and 3 bytes of
+// int16 out per pixel at P420 against ~40 operations per pixel, so bytes:
+// 24.9 MB each way at 4K, 0.0149 ms at 3.35 TB/s. Design: one CTA of 128
+// threads owns a strip of 2048 pixels along an MCU row (P420 8 MCUs, 128 x
+// 16; P422 16 MCUs, 256 x 8; P444 32 MCUs, 256 x 8), so each pixel row it
+// reads is 384 or 768 contiguous bytes, loaded as 16-byte chunks into
+// shared memory (a chunk that crosses the ends of the image takes byte
+// loads, so any width and any alignment work). Each thread then converts
+// 16 pixels, one subsample unit (a 2x2 quad, a pair or a pixel) at a time,
+// so the full-resolution chroma stays in registers; luma and the
+// subsampled chroma go to shared 8 x 8 blocks with a row pitch of 9 floats,
+// which makes the row pass (a thread per block row) and the column pass (a
+// thread per block column, its eight values in registers) free of bank
+// conflicts; every thread has 3, 4 or 6 rows and columns. The column pass quantizes into a shared int16
+// staging copy of the strip's blocks in zigzag order, and the CTA writes
+// it with 16-byte stores: a strip's MCUs are consecutive, so its luma
+// blocks, its Cb blocks and its Cr blocks are three contiguous ranges of
+// the outputs. Padding is done in the integer domain: a sample past H or W
+// reads as 0, and 0 / maxval is exactly 0.0, matching the reference's black
 // padding of the normalized image.
 
 #include <cuda_runtime.h>
@@ -41,8 +57,9 @@ namespace {
 
 using namespace dmmt;
 
-constexpr int MCUS_PER_CTA = 4;
 constexpr int THREADS = 128;
+constexpr int STRIP_PIXELS = 2048;
+constexpr int PITCH = 9;   // floats per row of a shared 8 x 8 block
 
 // raster index -> zigzag position (inverse of the ZIGZAG scan table)
 __constant__ int kInvZigzag[64] = {
@@ -56,100 +73,175 @@ __constant__ int kInvZigzag[64] = {
     35, 36, 48, 49, 57, 58, 62, 63,
 };
 
+// The strip's geometry for sampling rates HR x VR and T-sized samples.
+template <int HR, int VR, typename T>
+struct Strip {
+    static constexpr int MW = 8 * HR, MH = 8 * VR, LPM = HR * VR;
+    static constexpr int SW = STRIP_PIXELS / MH;          // strip width, pixels
+    static constexpr int S = SW / MW;                     // MCUs per strip
+    static constexpr int NBX = SW / 8;                    // luma blocks across
+    static constexpr int NL = VR * NBX;                   // luma blocks (= S * LPM)
+    static constexpr int NB = NL + 2 * S;                 // all blocks
+    static constexpr int UNITS = STRIP_PIXELS / LPM / THREADS;  // subsample units per thread
+    static constexpr int ITEMS = NB * 8 / THREADS;        // block rows (columns) per thread
+    static constexpr int ROW_BYTES = SW * 3 * static_cast<int>(sizeof(T));
+    static constexpr int RAW_PITCH = ROW_BYTES + 32;      // room for a 16-byte head and tail
+    static constexpr int CHUNKS = ROW_BYTES / 16 + 2;     // 16-byte chunks a row can touch
+    static constexpr int IO_BYTES = (MH * RAW_PITCH > NB * 128) ? MH * RAW_PITCH : NB * 128;
+    static_assert(STRIP_PIXELS % (LPM * THREADS) == 0 && (NB * 8) % THREADS == 0, "even work");
+    static_assert(ROW_BYTES % 16 == 0 && IO_BYTES % 16 == 0, "16-byte rows");
+};
+
 template <int HR, int VR, typename T>
 __global__ void __launch_bounds__(THREADS) phase1_kernel(
-    const T* __restrict__ rgb, int height, int width, int mcus_x, int n_mcu,
+    const T* __restrict__ rgb, int height, int width, int mcus_x, int strips_x,
     float maxval, const float* __restrict__ consts,
     const float* __restrict__ q_luma, const float* __restrict__ q_chroma,
     short* __restrict__ out_y, short* __restrict__ out_cb, short* __restrict__ out_cr) {
-    constexpr int MW = 8 * HR, MH = 8 * VR, LPM = HR * VR, NB = LPM + 2;
+    using G = Strip<HR, VR, T>;
+    constexpr int EB = static_cast<int>(sizeof(T));
     __shared__ float s_k[K_COUNT];
     __shared__ float s_q[2][64];
-    __shared__ float s_y[MCUS_PER_CTA][MH][MW];
-    __shared__ float s_chroma[MCUS_PER_CTA][2][MH][MW];   // full-resolution Cb, Cr before * 255
-    __shared__ float s_sub[MCUS_PER_CTA][2][8][8];        // subsampled Cb, Cr blocks
+    __shared__ float s_lut[256];                               // 8-bit samples / maxval
+    __shared__ int s_zz[64];                                   // kInvZigzag, read per lane
+    __shared__ float s_blk[G::NB][8][PITCH];                   // luma blocks, then Cb, Cr
+    __shared__ __align__(16) unsigned char s_io[G::IO_BYTES];  // raw rows, later int16 blocks
 
     const int tid = threadIdx.x;
+    const int my = blockIdx.x / strips_x, sx = blockIdx.x % strips_x;
+    const int row0 = my * G::MH, col0 = sx * G::SW;
+    const int n_px = min(G::SW, width - col0);                 // pixels of the strip inside W
+    const uintptr_t img_begin = reinterpret_cast<uintptr_t>(rgb);
+    const uintptr_t img_end = img_begin + static_cast<size_t>(height) * width * 3 * EB;
+    auto row_start = [&](int r) {
+        return img_begin + (static_cast<size_t>(row0 + r) * width + col0) * 3 * EB;
+    };
+
+    // 1. the strip's rows into shared memory, 16 bytes at a time; row r's
+    //    first sample lands at byte (its address mod 16) of its raw row
+    if (n_px > 0) {
+        for (int i = tid; i < G::MH * G::CHUNKS; i += THREADS) {
+            const int r = i / G::CHUNKS, c = i % G::CHUNKS;
+            if (row0 + r >= height) continue;
+            const uintptr_t start = row_start(r), a = (start & ~uintptr_t(15)) + 16 * c;
+            if (a >= start + static_cast<uintptr_t>(n_px) * 3 * EB) continue;
+            unsigned char* dst = s_io + r * G::RAW_PITCH + 16 * c;
+            if (a >= img_begin && a + 16 <= img_end) {
+                *reinterpret_cast<int4*>(dst) = __ldg(reinterpret_cast<const int4*>(a));
+            } else {
+                for (int j = 0; j < 16; ++j)
+                    if (a + j >= img_begin && a + j < img_end)
+                        dst[j] = __ldg(reinterpret_cast<const unsigned char*>(a + j));
+            }
+        }
+    }
     for (int i = tid; i < K_COUNT; i += THREADS) s_k[i] = consts[i];
     for (int i = tid; i < 64; i += THREADS) {
         s_q[0][i] = q_luma[i];
         s_q[1][i] = q_chroma[i];
+        s_zz[i] = kInvZigzag[i];
     }
+    if (EB == 1)
+        for (int i = tid; i < 256; i += THREADS) s_lut[i] = __fdiv_rn(static_cast<float>(i), maxval);
     __syncthreads();
     const float* k = s_k;
-    const int mcu0 = blockIdx.x * MCUS_PER_CTA;
 
-    // 1. load, normalize, color-convert
-    for (int i = tid; i < MCUS_PER_CTA * MH * MW; i += THREADS) {
-        const int m = i / (MH * MW), ly = (i / MW) % MH, lx = i % MW;
-        const int mcu = mcu0 + m;
-        if (mcu >= n_mcu) continue;
-        const int row = (mcu / mcus_x) * MH + ly, col = (mcu % mcus_x) * MW + lx;
-        float r = 0.0f, g = 0.0f, b = 0.0f;
-        if (row < height && col < width) {
-            const T* px = rgb + (static_cast<size_t>(row) * width + col) * 3;
-            r = __fdiv_rn(static_cast<float>(px[0]), maxval);
-            g = __fdiv_rn(static_cast<float>(px[1]), maxval);
-            b = __fdiv_rn(static_cast<float>(px[2]), maxval);
-        }
-        s_y[m][ly][lx] = mul(sub(fmadd(b, k[K_Y2], fmadd(r, k[K_Y0], mul(g, k[K_Y1]))),
-                                 k[K_LEVEL_SHIFT]), k[K_SCALE]);
-        s_chroma[m][0][ly][lx] = fmadd(b, k[K_CB2], fmadd(r, k[K_CB0], mul(g, k[K_CB1])));
-        s_chroma[m][1][ly][lx] = fmadd(b, k[K_CR2], fmadd(r, k[K_CR0], mul(g, k[K_CR1])));
-    }
-    __syncthreads();
-
-    // 2. chroma scale + subsample: ((tl + bl) + tr) + br / 4 or (l + r) / 2,
-    //    with the scale by 255 fused into the adds (ops/geometry.subsample_scaled)
+    // 2. normalize, color-convert and subsample, one unit of HR x VR pixels
+    //    at a time: luma to its block, the unit's chroma average to the
+    //    subsampled blocks (scale by 255 fused into the adds,
+    //    ops/geometry.subsample_scaled)
     const float sc = k[K_SCALE];
-    for (int i = tid; i < MCUS_PER_CTA * 2 * 64; i += THREADS) {
-        const int m = i / 128, c = (i / 64) % 2, cy = (i / 8) % 8, cx = i % 8;
-        float(*src)[MW] = s_chroma[m][c];
-        float v;
-        if (HR == 1 && VR == 1) {
-            v = mul(src[cy][cx], sc);
-        } else if (VR == 1) {
-            v = __fdiv_rn(fmadd(src[cy][2 * cx], sc, mul(src[cy][2 * cx + 1], sc)), 2.0f);
-        } else {
-            const int y0 = 2 * cy, x0 = 2 * cx;
-            v = __fdiv_rn(fmadd(src[y0 + 1][x0 + 1], sc,
-                              fmadd(src[y0][x0 + 1], sc, fmadd(src[y0][x0], sc, mul(src[y0 + 1][x0], sc)))),
-                          4.0f);
+    constexpr int CW = G::SW / HR;   // subsampled chroma columns of the strip
+#pragma unroll
+    for (int uu = 0; uu < G::UNITS; ++uu) {
+        const int u = tid + uu * THREADS, cy = u / CW, cx = u % CW;
+        float cb[VR][HR], cr[VR][HR];
+#pragma unroll
+        for (int dy = 0; dy < VR; ++dy) {
+            const int ly = cy * VR + dy;
+            const unsigned char* raw = s_io + ly * G::RAW_PITCH + (row_start(ly) & 15);
+#pragma unroll
+            for (int dx = 0; dx < HR; ++dx) {
+                const int lx = cx * HR + dx;
+                float px[3] = {0.0f, 0.0f, 0.0f};
+                if (row0 + ly < height && lx < n_px) {
+#pragma unroll
+                    for (int ch = 0; ch < 3; ++ch) {
+                        const T v = *reinterpret_cast<const T*>(raw + (lx * 3 + ch) * EB);
+                        px[ch] = EB == 1 ? s_lut[v] : __fdiv_rn(static_cast<float>(v), maxval);
+                    }
+                }
+                const float r = px[0], g = px[1], b = px[2];
+                s_blk[(ly / 8) * G::NBX + lx / 8][ly % 8][lx % 8] =
+                    mul(sub(fmadd(b, k[K_Y2], fmadd(r, k[K_Y0], mul(g, k[K_Y1]))), k[K_LEVEL_SHIFT]),
+                        k[K_SCALE]);
+                cb[dy][dx] = fmadd(b, k[K_CB2], fmadd(r, k[K_CB0], mul(g, k[K_CB1])));
+                cr[dy][dx] = fmadd(b, k[K_CR2], fmadd(r, k[K_CR0], mul(g, k[K_CR1])));
+            }
         }
-        s_sub[m][c][cy][cx] = v;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const float(&src)[VR][HR] = c ? cr : cb;
+            float v;
+            if (HR == 1 && VR == 1) {
+                v = mul(src[0][0], sc);
+            } else if (VR == 1) {
+                v = mul(fmadd(src[0][0], sc, mul(src[0][HR - 1], sc)), 0.5f);
+            } else {
+                v = mul(fmadd(src[VR - 1][HR - 1], sc,
+                              fmadd(src[0][HR - 1], sc, fmadd(src[0][0], sc, mul(src[VR - 1][0], sc)))),
+                        0.25f);
+            }
+            s_blk[G::NL + c * G::S + cx / 8][cy][cx % 8] = v;
+        }
     }
     __syncthreads();
 
     // 3. row pass (along x), one thread per block row
-    for (int i = tid; i < MCUS_PER_CTA * NB * 8; i += THREADS) {
-        const int m = i / (NB * 8), blk = (i / 8) % NB, r = i % 8;
-        float* row = blk < LPM ? &s_y[m][(blk / HR) * 8 + r][(blk % HR) * 8]
-                               : &s_sub[m][blk - LPM][r][0];
-        arai8(row, 1, k);
+#pragma unroll
+    for (int ii = 0; ii < G::ITEMS; ++ii) {
+        const int i = tid + ii * THREADS;
+        arai8(&s_blk[i / 8][i % 8][0], 1, k);
     }
     __syncthreads();
 
-    // 4. column pass (along y), quantize, zigzag store; one thread per column
-    for (int i = tid; i < MCUS_PER_CTA * NB * 8; i += THREADS) {
-        const int m = i / (NB * 8), blk = (i / 8) % NB, u = i % 8;
-        const int mcu = mcu0 + m;
-        if (mcu >= n_mcu) continue;
-        float* col;
-        int step;
-        short* out;
-        if (blk < LPM) {
-            col = &s_y[m][(blk / HR) * 8][(blk % HR) * 8 + u];
-            step = MW;
-            out = out_y + (static_cast<size_t>(mcu) * LPM + blk) * 64;
-        } else {
-            col = &s_sub[m][blk - LPM][0][u];
-            step = 8;
-            out = (blk == LPM ? out_cb : out_cr) + static_cast<size_t>(mcu) * 64;
+    // 4. column pass (along y) in registers, quantize, zigzag into the int16
+    //    staging copy: [S * LPM luma blocks in MCU order][S Cb][S Cr]
+    short* s_out = reinterpret_cast<short*>(s_io);
+#pragma unroll
+    for (int ii = 0; ii < G::ITEMS; ++ii) {
+        const int i = tid + ii * THREADS, blk = i / 8, u = i % 8;
+        int out_blk = blk;
+        if (blk < G::NL) {
+            const int by = blk / G::NBX, bx = blk % G::NBX;
+            out_blk = (bx / HR) * G::LPM + by * HR + bx % HR;
         }
-        arai8(col, step, k);
-        const float* q = s_q[blk < LPM ? 0 : 1];
-        for (int v = 0; v < 8; ++v) {
-            out[kInvZigzag[v * 8 + u]] = round_half_away(__fdiv_rn(col[v * step], q[v * 8 + u]));
+        float col[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) col[v] = s_blk[blk][v][u];
+        arai8(col, k);
+        const float* q = s_q[blk < G::NL ? 0 : 1];
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+            s_out[out_blk * 64 + s_zz[v * 8 + u]] = round_half_away(__fdiv_rn(col[v], q[v * 8 + u]));
+    }
+    __syncthreads();
+
+    // 5. the strip's MCUs that exist, as three contiguous runs of 16-byte stores
+    const int n_mcu = min(G::S, mcus_x - sx * G::S);
+    const size_t mcu0 = static_cast<size_t>(my) * mcus_x + sx * G::S;
+    const int4* src = reinterpret_cast<const int4*>(s_io);
+    const int n_luma = n_mcu * G::LPM * 8, n_chroma = n_mcu * 8;   // int4s
+    int4* dst_y = reinterpret_cast<int4*>(out_y + mcu0 * G::LPM * 64);
+    int4* dst_cb = reinterpret_cast<int4*>(out_cb + mcu0 * 64);
+    int4* dst_cr = reinterpret_cast<int4*>(out_cr + mcu0 * 64);
+    for (int i = tid; i < n_luma + 2 * n_chroma; i += THREADS) {
+        if (i < n_luma) {
+            dst_y[i] = src[i];
+        } else if (i < n_luma + n_chroma) {
+            dst_cb[i - n_luma] = src[G::NL * 8 + i - n_luma];
+        } else {
+            dst_cr[i - n_luma - n_chroma] = src[(G::NL + G::S) * 8 + i - n_luma - n_chroma];
         }
     }
 }
@@ -158,12 +250,17 @@ template <int HR, int VR, typename T>
 cudaError_t launch(const void* rgb, int height, int width, float maxval, const float* consts,
                    const float* q_luma, const float* q_chroma, short* out_y, short* out_cb,
                    short* out_cr, cudaStream_t stream) {
-    const int mcus_x = (width + 8 * HR - 1) / (8 * HR);
-    const int mcus_y = (height + 8 * VR - 1) / (8 * VR);
-    const int n_mcu = mcus_x * mcus_y;
-    const int grid = (n_mcu + MCUS_PER_CTA - 1) / MCUS_PER_CTA;
-    phase1_kernel<HR, VR, T><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(rgb), height, width, mcus_x, n_mcu, maxval, consts, q_luma,
+    using G = Strip<HR, VR, T>;
+    if ((reinterpret_cast<uintptr_t>(out_y) | reinterpret_cast<uintptr_t>(out_cb) |
+         reinterpret_cast<uintptr_t>(out_cr)) & 15)
+        return cudaErrorMisalignedAddress;
+    const int mcus_x = (width + G::MW - 1) / G::MW;
+    const int mcus_y = (height + G::MH - 1) / G::MH;
+    const int strips_x = (mcus_x + G::S - 1) / G::S;
+    const long long grid = static_cast<long long>(strips_x) * mcus_y;
+    if (grid < 1 || grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+    phase1_kernel<HR, VR, T><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
+        static_cast<const T*>(rgb), height, width, mcus_x, strips_x, maxval, consts, q_luma,
         q_chroma, out_y, out_cb, out_cr);
     return cudaGetLastError();
 }
@@ -187,8 +284,9 @@ cudaError_t dispatch_rates(int hr, int vr, const void* rgb, int height, int widt
 }  // namespace
 
 // rgb: [height, width, 3] uint8 (elem_bytes 1) or uint16 (elem_bytes 2),
-// unpadded. consts: float32 [K_COUNT]. q_luma/q_chroma: float32 [64] raster.
-// out_y: int16 [n_mcu * hr * vr, 64]; out_cb/out_cr: int16 [n_mcu, 64].
+// unpadded, any alignment. consts: float32 [K_COUNT]. q_luma/q_chroma:
+// float32 [64] raster. out_y: int16 [n_mcu * hr * vr, 64]; out_cb/out_cr:
+// int16 [n_mcu, 64]; all three 16-byte aligned.
 extern "C" int dmmt_phase1(const void* rgb, int elem_bytes, int height, int width, int hr,
                            int vr, float maxval, const float* consts, const float* q_luma,
                            const float* q_chroma, short* out_y, short* out_cb, short* out_cr,

@@ -169,6 +169,114 @@ def lookup_edge_inputs(g: int, m: int, t: int, in_range: bool) -> tuple[np.ndarr
     return symbols, tables
 
 
+# Edge shapes of the scan-pack kernel's tiling and of its coding, shared the
+# same way. SCAN_PACK_TILE and SCAN_PACK_TILE_WORDS are TILE and TILE_WORDS
+# in dmmt_jpeg_encoder_tpu_torch/csrc/scan_pack.cu: a tile of blocks per
+# CTA, and the shared word buffer past which a tile takes the over-full arm.
+SCAN_PACK_TILE = 128
+SCAN_PACK_TILE_WORDS = 2048
+# case -> (blocks, stride, luma blocks per MCU): scan-order int16 zigzag
+# blocks, DC already DPCM'd (block i is chroma iff i % stride >= lpm)
+SCAN_PACK_EDGE_CASES = (
+    "n1", "tile-1", "tile", "tile+1", "tiles3+5", "no_ac", "all_ac", "zero_runs", "only_63",
+    "extreme", "overfull",
+)
+# the `valid` masks, each on the case of three tiles and five
+SCAN_PACK_EDGE_MASKS = ("all", "none", "alternating", "single")
+# the slab scan pack's images (B = 1 and 3), each a case of three tiles and
+# five blocks with its own tables
+SCAN_PACK_SLAB_EDGES = (("extreme",), ("tiles3+5", "zero_runs", "overfull"))
+# (height, width, preset, maxval) of the phase-1 kernel's strip tiling:
+# widths whose rows are not whole 16-byte chunks (7x17, 9x35, 333x1001),
+# each preset, 16-bit samples and a one-level range
+PHASE1_EDGE_CASES = tuple(
+    (h, w, p, 255) for h, w in ((1, 1), (7, 17), (8, 8), (15, 16), (9, 35), (333, 1001))
+    for p in ("P444", "P422", "P420")
+) + ((15, 16, "P420", 4095), (15, 16, "P420", 65535), (9, 35, "P422", 65535),
+     (15, 16, "P420", 1), (9, 35, "P444", 1))
+
+
+def scan_pack_edge_blocks(case: str) -> tuple[np.ndarray, int, int]:
+    """One SCAN_PACK_EDGE_CASES case: (blocks int16 [N, 64], stride, lpm)."""
+    rng = np.random.default_rng(SCAN_PACK_EDGE_CASES.index(case) + 7000)
+    tile = SCAN_PACK_TILE
+    n = {"n1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(case, 3 * tile + 5)
+    if case in ("n1", "tile-1", "tile", "tile+1", "tiles3+5"):
+        if case == "n1":
+            return random_blocks(int(rng.integers(1 << 30)), 20)[5:6], 3, 1
+        return random_blocks(int(rng.integers(1 << 30)), n), 6, 4
+    blocks = np.zeros((n, 64), np.int64)
+    blocks[:, 0] = rng.integers(-60, 61, n)
+    if case == "no_ac":
+        blocks[::7, 0] = 0
+    elif case == "all_ac":
+        blocks[:, 1:] = rng.integers(1, 6, (n, 63)) * rng.choice([-1, 1], (n, 63))
+    elif case == "zero_runs":
+        # runs of 15, 16, 17, 31, 32, 47 and 48 zeros (0-3 ZRLs) before a
+        # nonzero, starting at each lane boundary and off it
+        runs = (15, 16, 17, 31, 32, 47, 48)
+        for i in range(n):
+            run, start = runs[i % len(runs)], 1 + (i // len(runs)) % 9
+            pos = start + run
+            if pos <= 63:
+                blocks[i, 1:start] = rng.integers(1, 4, start - 1)
+                blocks[i, pos] = rng.integers(1, 30) * rng.choice([-1, 1])
+                if pos + 17 <= 63 and i % 2:
+                    blocks[i, pos + 17] = -3
+            else:
+                blocks[i, 63] = 1
+    elif case == "only_63":
+        blocks[:, 63] = rng.integers(1, 200, n) * rng.choice([-1, 1], n)
+    elif case == "extreme":
+        # DC differences of category 11, AC values of category 10
+        blocks[:, 0] = rng.integers(1024, 2048, n) * rng.choice([-1, 1], n)
+        sparse = rng.random((n, 63)) < 0.3
+        blocks[:, 1:] = np.where(sparse, rng.integers(512, 1024, (n, 63)) * rng.choice([-1, 1], (n, 63)), 0)
+    elif case == "overfull":
+        # near-worst-case blocks: every AC nonzero, mostly of category 9 and
+        # 10, so the first tile passes the shared word buffer
+        blocks[:, 0] = rng.integers(1024, 2048, n) * rng.choice([-1, 1], n)
+        cats = np.where(rng.random((n, 63)) < 0.8, rng.integers(9, 11, (n, 63)), rng.integers(1, 9, (n, 63)))
+        mags = (1 << (cats - 1)) + rng.integers(0, 1 << 30, (n, 63)) % (1 << (cats - 1))
+        blocks[:, 1:] = mags * rng.choice([-1, 1], (n, 63))
+    else:
+        raise KeyError(case)
+    return blocks.astype(np.int16), 6, 4
+
+
+def scan_pack_edge_mask(name: str, n: int) -> np.ndarray:
+    """int32 [n] `valid` mask of SCAN_PACK_EDGE_MASKS."""
+    idx = np.arange(n)
+    return {"all": idx >= 0, "none": idx < 0, "alternating": idx % 2 == 0,
+            "single": idx == n // 2}[name].astype(np.int32)
+
+
+def scan_pack_tables(blocks: np.ndarray, stride: int, lpm: int) -> tuple[np.ndarray, np.ndarray]:
+    """int32 codes and lens [4, 256] (luma DC, luma AC, chroma DC, chroma
+    AC) built from the blocks' own histograms as the pipeline builds them
+    (package-merge code lengths, canonical codes; a class with no block
+    takes all blocks' histograms); imports the port."""
+    import torch
+
+    from dmmt_jpeg_encoder_tpu_torch.encoder import HuffmanTables
+    from dmmt_jpeg_encoder_tpu_torch.entropy.categorize import symbol_histograms
+
+    chroma = np.arange(len(blocks)) % stride >= lpm
+    parts = [blocks[~chroma], blocks[chroma]]
+    parts = [p if len(p) else blocks for p in parts]  # N = 1: one class takes the other's
+    hists = [h.numpy() for part in parts
+             for h in symbol_histograms(torch.from_numpy(np.ascontiguousarray(part)))]
+    flat = HuffmanTables.from_host_histograms(*hists).flat()
+    return (np.array([c for c, _ in flat], np.int32), np.array([ln for _, ln in flat], np.int32))
+
+
+def phase1_edge_pixels(h: int, w: int, maxval: int) -> np.ndarray:
+    """RGB [h, w, 3] samples over the whole range 0..maxval (uint8, or
+    uint16 above 255)."""
+    rng = np.random.default_rng(h * 100003 + w * 7 + maxval)
+    return rng.integers(0, maxval + 1, (h, w, 3)).astype(np.uint8 if maxval <= 255 else np.uint16)
+
+
 def sha256(data: bytes | np.ndarray) -> str:
     if isinstance(data, np.ndarray):
         data = np.ascontiguousarray(data).tobytes()
