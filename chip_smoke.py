@@ -47,9 +47,11 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    of the largest categories, tiles past its shared word buffer beside
    tiles within it; `valid` all, none, alternating and single; the slab
    form at B = 1 and 3, also against one scan-pack call per image, tables
-   built from each case's histograms) and for phase 1 (1x1 to 333x1001,
-   rows that are no whole 16-byte chunks, each preset, 16-bit samples,
-   maxval 1);
+   built from each case's histograms), for the block histograms (N from 1
+   to 389 with the prefixes 0, 1, N - 1 and N, the scan pack's coding
+   corners, chroma calls of two segments of unequal and odd lengths) and
+   for phase 1 and the fused matmul phase 1 (1x1 to 333x1001, rows that
+   are no whole 16-byte chunks, each preset, 16-bit samples, maxval 1);
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -507,6 +509,7 @@ def main() -> int:
         fused_reference,
     )
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_arai import fused_arai_phase1
+    from dmmt_jpeg_encoder_tpu_torch.ops.fused_phase1 import fused_phase1, fused_phase1_reference
     from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
     from dmmt_jpeg_encoder_tpu_torch.ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
     from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
@@ -524,6 +527,7 @@ def main() -> int:
     from torch_port_fixtures import (
         BATCH_FIXTURES,
         BLOCK_DCT_EDGE_N,
+        BLOCK_HIST_EDGE_CASES,
         FIXTURES,
         LOOKUP_EDGE_SHAPES,
         PHASE1_EDGE_CASES,
@@ -536,6 +540,7 @@ def main() -> int:
         SCAN_PACK_TILE_WORDS,
         batch_frames,
         block_dct_edge_inputs,
+        block_hist_edge_segments,
         fixture_pixels,
         lookup_edge_inputs,
         phase1_edge_pixels,
@@ -606,8 +611,8 @@ def main() -> int:
         blocks = [dc_dpcm(b) for b in kern]
         chroma = torch.cat(blocks[1:])
 
-        def k2():
-            return fused_block_histograms(blocks[0]), fused_block_histograms(chroma)
+        def k2():  # as the encodes call it: the chroma as two segments
+            return fused_block_histograms(blocks[0]), fused_block_histograms((blocks[1], blocks[2]))
 
         def p2():
             return block_histograms_plain(blocks[0]), block_histograms_plain(chroma)
@@ -867,9 +872,9 @@ def main() -> int:
         f"on {len(LOOKUP_EDGE_SHAPES)} (G, m, T) shapes with symbols -1, T, T + 1; both also "
         "from unaligned views")
 
-    # the scan pack's and phase 1's edge cases (tests/torch_port_fixtures.py),
-    # each also from a view 4 bytes past a 16-byte boundary, against the
-    # plain versions, exactly
+    # the scan pack's, the block histograms' and the two phase 1s' edge cases
+    # (tests/torch_port_fixtures.py), each also from a view 4 bytes past a
+    # 16-byte boundary, against the plain versions, exactly
     def unaligned(t):
         n_bytes = t.numel() * t.element_size()
         flat = torch.empty(n_bytes + 32, dtype=torch.uint8, device=dev)
@@ -919,17 +924,28 @@ def main() -> int:
     log(f"edge cases: scan_pack == plain on {len(SCAN_PACK_EDGE_CASES)} cases (tiles' arms "
         f"{tile_arms}), with valid masks {SCAN_PACK_EDGE_MASKS}; scan_pack_slab == plain == scan_pack "
         f"for B in {[len(c) for c in SCAN_PACK_SLAB_EDGES]}; all also from unaligned views")
+    for case in BLOCK_HIST_EDGE_CASES:
+        segs = [torch.from_numpy(x).to(dev) for x in block_hist_edge_segments(case)]
+        whole, n_valid = torch.cat(segs), case[2]
+        want = block_histograms_plain(whole[: len(whole) if n_valid is None else n_valid])
+        for label, xin in (("", segs), (" unaligned", [unaligned(x) if x.numel() else x for x in segs])):
+            got = fused_block_histograms(tuple(xin) if len(xin) > 1 else xin[0], n_valid)
+            check_equal(torch, errs, "block_hist", f"edge {case}{label}", got, want)
+    log(f"edge cases: block_hist == plain on {len(BLOCK_HIST_EDGE_CASES)} (content, segments, "
+        "n_valid) cases, also from unaligned views")
     for h, w, pname, maxval in PHASE1_EDGE_CASES:
         preset = port.ChromaSubsamplingPreset(pname)
         lq, cq = (torch.from_numpy(t).to(dev) for t in quantization_table_pair(
             port.QuantizationTablePreset.SPECIFICATION, None))
         rgb = torch.from_numpy(phase1_edge_pixels(h, w, maxval)).to(dev)
         want = phase1_zigzag_blocks(rgb, maxval, lq, cq, preset)
+        want_mm = fused_phase1_reference(rgb, maxval, lq, cq, preset)
         for label, xin in (("", rgb), (" unaligned", unaligned(rgb))):
-            check_equal(torch, errs, "phase1", f"edge {h}x{w} {pname} maxval {maxval}{label}",
-                        fused_arai_phase1(xin, maxval, lq, cq, preset), want)
-    log(f"edge cases: phase1 == plain on {len(PHASE1_EDGE_CASES)} (H, W, preset, maxval) cases, "
-        "also from unaligned views")
+            what = f"edge {h}x{w} {pname} maxval {maxval}{label}"
+            check_equal(torch, errs, "phase1", what, fused_arai_phase1(xin, maxval, lq, cq, preset), want)
+            check_equal(torch, errs, "phase1_mm", what, fused_phase1(xin, maxval, lq, cq, preset), want_mm)
+    log(f"edge cases: phase1 == plain and phase1_mm == plain on {len(PHASE1_EDGE_CASES)} "
+        "(H, W, preset, maxval) cases, also from unaligned views")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}

@@ -13,153 +13,255 @@
 //                                       + fma(tr, 255, br * 255)) * 0.25
 //                                 P422 fma(l, 255, r * 255) * 0.5
 //                                 P444 sum * 255
-//   C X C^T per 8x8 group         contract8, column pass first (dct8.cuh)
+//   C X C^T per 8x8 group         contract8 (dct8.cuh), column pass first
 //   / q, round half away from zero, int16
 //
 // into a luma plane [PH, PW] and Cb/Cr planes [PH / v, PW / h] of the image
 // padded black to its MCU multiple. Padding is done in the integer domain:
-// a read past H or W yields 0, and 0 * (1 / maxval) is exactly 0.0.
+// a sample past H or W reads as 0, and 0 * (1 / maxval) is exactly 0.0.
 //
-// Bound on the H100: 3 or 6 bytes of pixels in and 2 + 4 / (h v) bytes of
-// coefficients out per pixel, against ~100 operations per pixel, so it is
-// bandwidth-bound. Design: one CTA per tile of one MCU row height (8 v rows)
-// x 128 columns; pixels are read once, and the color planes, the
-// subsampled chroma and both DCT passes stay in shared memory.
+// Bound on the H100: 3 bytes in (6 for 16-bit samples) and 3 bytes of
+// int16 out per pixel at P420 (24.9 MB each way at 4K, 0.0149 ms at 3.35
+// TB/s), against ~70 operations per pixel, mostly the two 8-term
+// contractions per coefficient and the quantizing division, so the float32
+// pipes come close behind the bytes. Design, the phase-1 kernel's
+// (phase1.cu) with the matmul DCT:
+// - one CTA of 128 threads owns a 2048-pixel strip along an MCU row, loaded
+//   as 16-byte chunks into shared memory (strip.cuh: any width, any
+//   alignment);
+// - each thread converts one subsample unit (a 2x2 quad, a pair or a
+//   pixel) at a time, so the full-resolution chroma stays in registers;
+//   luma and the subsampled chroma go to shared 8 x 8 blocks with a row
+//   pitch of 9 floats, so that both passes are free of bank conflicts;
+// - the column pass (a thread per block column) and then the row pass (a
+//   thread per block row) each hold their eight values in registers and
+//   sum in contract8's order; the color constants and the DCT matrix come
+//   as the launch's parameters, so the contractions read them as
+//   constant-bank operands, with no loads;
+// - the row pass divides by the thread's row of the quantization tables
+//   (held in registers: a thread keeps one row v), rounds, and writes the
+//   block row's 8 coefficients to the plane with one 16-byte store.
+// Every rounding is the reference's: __fmul_rn / __fadd_rn / __fsub_rn
+// and __fmaf_rn exactly where XLA fuses, one reciprocal of maxval by
+// __fdiv_rn, the quantizing division by __fdiv_rn; / 4 and / 2 are exact
+// multiplies by 0.25 and 0.5.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "dct8.cuh"
+#include "strip.cuh"
 
 namespace {
 
 using namespace dmmt;
 
-constexpr int TILE_W = 128;
-constexpr int THREADS = 128;
+// The color constants (ops/fused_arai.kernel_constants) and the DCT matrix
+// C [8][8] (row k = frequency), passed by value.
+struct Consts {
+    float k[K_COUNT];
+    float c[64];
+};
 
-template <int HR, int VR, typename T>
-__global__ void __launch_bounds__(THREADS) phase1_mm_kernel(
-    const T* __restrict__ rgb, int height, int width, int padded_w, int tiles_x, float maxval,
-    const float* __restrict__ consts, const float* __restrict__ c,
-    const float* __restrict__ q_luma, const float* __restrict__ q_chroma,
-    short* __restrict__ out_y, short* __restrict__ out_cb, short* __restrict__ out_cr) {
-    constexpr int MH = 8 * VR, LD = TILE_W + 1, CW = TILE_W / HR, CLD = CW + 1;
-    __shared__ float s_k[K_COUNT];
-    __shared__ float s_c[64];
-    __shared__ float s_q[2][64];
-    __shared__ float s_y[MH * LD];
-    __shared__ float s_sum[2][MH][TILE_W];   // Cb, Cr color sums before * 255
-    __shared__ float s_sub[2][8 * CLD];      // subsampled Cb, Cr
+// sum_n x[n] * C[row][n] in contract8's order, the weights read from the
+// launch's parameters
+__device__ __forceinline__ float contract_row(const float (&x)[8], const Consts& p, int row) {
+    float w[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) w[n] = p.c[row * 8 + n];
+    return contract8(x, w);
+}
 
-    const int tid = threadIdx.x;
-    for (int i = tid; i < K_COUNT; i += THREADS) s_k[i] = consts[i];
-    for (int i = tid; i < 64; i += THREADS) {
-        s_c[i] = c[i];
-        s_q[0][i] = q_luma[i];
-        s_q[1][i] = q_chroma[i];
-    }
-    __syncthreads();
-    const float* k = s_k;
-    const float inv = __fdiv_rn(1.0f, maxval);
-    const int row0 = (blockIdx.x / tiles_x) * MH, col0 = (blockIdx.x % tiles_x) * TILE_W;
-    const int valid = min(TILE_W, padded_w - col0);
-
-    // 1. load, normalize, color-convert
-    for (int i = tid; i < MH * TILE_W; i += THREADS) {
-        const int ly = i / TILE_W, lx = i % TILE_W;
-        const int row = row0 + ly, col = col0 + lx;
-        float r = 0.0f, g = 0.0f, b = 0.0f;
-        if (row < height && col < width) {
-            const T* px = rgb + (static_cast<size_t>(row) * width + col) * 3;
-            r = mul(static_cast<float>(px[0]), inv);
-            g = mul(static_cast<float>(px[1]), inv);
-            b = mul(static_cast<float>(px[2]), inv);
-        }
-        s_y[ly * LD + lx] = mul(sub(fmadd(b, k[K_Y2], fmadd(r, k[K_Y0], mul(g, k[K_Y1]))),
-                                    k[K_LEVEL_SHIFT]), k[K_SCALE]);
-        s_sum[0][ly][lx] = fmadd(b, k[K_CB2], fmadd(r, k[K_CB0], mul(g, k[K_CB1])));
-        s_sum[1][ly][lx] = fmadd(b, k[K_CR2], fmadd(r, k[K_CR0], mul(g, k[K_CR1])));
-    }
-    __syncthreads();
-
-    // 2. chroma scale + pair-sum subsample (vertical pairs, then horizontal)
-    const float sc = k[K_SCALE];
-    for (int i = tid; i < 2 * 8 * CW; i += THREADS) {
-        const int ch = i / (8 * CW), cy = (i / CW) % 8, cx = i % CW;
-        float(*src)[TILE_W] = s_sum[ch];
-        float v;
-        if (HR == 1 && VR == 1) {
-            v = mul(src[cy][cx], sc);
-        } else if (VR == 1) {
-            v = mul(fmadd(src[cy][2 * cx], sc, mul(src[cy][2 * cx + 1], sc)), 0.5f);
-        } else {
-            const int y0 = 2 * cy, x0 = 2 * cx;
-            const float left = fmadd(src[y0][x0], sc, mul(src[y0 + 1][x0], sc));
-            const float right = fmadd(src[y0][x0 + 1], sc, mul(src[y0 + 1][x0 + 1], sc));
-            v = mul(add(left, right), 0.25f);
-        }
-        s_sub[ch][cy * CLD + cx] = v;
-    }
-    __syncthreads();
-
-    // 3. matmul DCT, quantize, store
-    matmul_dct_quant_tile(s_y, MH, TILE_W, LD, s_c, s_q[0],
-                          out_y + static_cast<size_t>(row0) * padded_w + col0, padded_w, valid);
-    const int cw_plane = padded_w / HR;
-    const size_t c_off = static_cast<size_t>(row0 / VR) * cw_plane + col0 / HR;
-    matmul_dct_quant_tile(s_sub[0], 8, CW, CLD, s_c, s_q[1], out_cb + c_off, cw_plane, valid / HR);
-    matmul_dct_quant_tile(s_sub[1], 8, CW, CLD, s_c, s_q[1], out_cr + c_off, cw_plane, valid / HR);
+__device__ __forceinline__ unsigned pack2(short lo, short hi) {
+    return static_cast<unsigned short>(lo) | (static_cast<unsigned>(static_cast<unsigned short>(hi)) << 16);
 }
 
 template <int HR, int VR, typename T>
-cudaError_t launch(const void* rgb, int height, int width, float maxval, const float* consts,
-                   const float* c, const float* q_luma, const float* q_chroma, short* out_y,
-                   short* out_cb, short* out_cr, cudaStream_t stream) {
-    const int padded_w = (width + 8 * HR - 1) / (8 * HR) * (8 * HR);
-    const int padded_h = (height + 8 * VR - 1) / (8 * VR) * (8 * VR);
-    const int tiles_x = (padded_w + TILE_W - 1) / TILE_W;
-    phase1_mm_kernel<HR, VR, T><<<tiles_x * (padded_h / (8 * VR)), THREADS, 0, stream>>>(
-        static_cast<const T*>(rgb), height, width, padded_w, tiles_x, maxval, consts, c, q_luma,
+__global__ void __launch_bounds__(STRIP_THREADS) phase1_mm_kernel(
+    const T* __restrict__ rgb, int height, int width, int padded_w, int strips_x, float maxval,
+    const __grid_constant__ Consts p, const float* __restrict__ q_luma,
+    const float* __restrict__ q_chroma, short* __restrict__ out_y, short* __restrict__ out_cb,
+    short* __restrict__ out_cr) {
+    using G = Strip<HR, VR, T>;
+    constexpr int EB = static_cast<int>(sizeof(T));
+    constexpr int CW = G::SW / HR;   // subsampled chroma columns of the strip
+    __shared__ float s_blk[G::NB][8][BLOCK_PITCH];                  // luma blocks, then Cb, Cr
+    __shared__ __align__(16) unsigned char s_raw[G::MH * G::RAW_PITCH];
+
+    const int tid = threadIdx.x;
+    const int my = blockIdx.x / strips_x, sx = blockIdx.x % strips_x;
+    const int row0 = my * G::MH, col0 = sx * G::SW;
+    const int n_px = min(G::SW, width - col0);                 // pixels of the strip inside W
+
+    // 1. the strip's rows into shared memory; the thread's row v of both
+    //    quantization tables into registers (row i % 8 of every block row
+    //    it takes in the row pass: i = tid + a multiple of 128)
+    if (n_px > 0) load_strip_rows<G>(s_raw, rgb, height, width, row0, col0, n_px);
+    const int v = tid % 8;
+    float ql[8], qc[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+        ql[u] = __ldg(q_luma + v * 8 + u);
+        qc[u] = __ldg(q_chroma + v * 8 + u);
+    }
+    const float inv = __fdiv_rn(1.0f, maxval);
+    __syncthreads();
+
+    // 2. normalize, color-convert and subsample, one unit of HR x VR pixels
+    //    at a time: luma to its block, the unit's chroma pair sum to the
+    //    subsampled blocks
+    const float sc = p.k[K_SCALE];
+#pragma unroll
+    for (int uu = 0; uu < G::UNITS; ++uu) {
+        const int un = tid + uu * STRIP_THREADS, cy = un / CW, cx = un % CW;
+        float cb[VR][HR], cr[VR][HR];
+#pragma unroll
+        for (int dy = 0; dy < VR; ++dy) {
+            const int ly = cy * VR + dy;
+            const unsigned char* raw = strip_row<G>(s_raw, rgb, width, row0, col0, ly);
+#pragma unroll
+            for (int dx = 0; dx < HR; ++dx) {
+                const int lx = cx * HR + dx;
+                float px[3] = {0.0f, 0.0f, 0.0f};
+                if (row0 + ly < height && lx < n_px) {
+#pragma unroll
+                    for (int ch = 0; ch < 3; ++ch)
+                        px[ch] = mul(static_cast<float>(*reinterpret_cast<const T*>(raw + (lx * 3 + ch) * EB)),
+                                     inv);
+                }
+                const float r = px[0], g = px[1], b = px[2];
+                s_blk[(ly / 8) * G::NBX + lx / 8][ly % 8][lx % 8] =
+                    mul(sub(fmadd(b, p.k[K_Y2], fmadd(r, p.k[K_Y0], mul(g, p.k[K_Y1]))),
+                            p.k[K_LEVEL_SHIFT]),
+                        p.k[K_SCALE]);
+                cb[dy][dx] = fmadd(b, p.k[K_CB2], fmadd(r, p.k[K_CB0], mul(g, p.k[K_CB1])));
+                cr[dy][dx] = fmadd(b, p.k[K_CR2], fmadd(r, p.k[K_CR0], mul(g, p.k[K_CR1])));
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const float(&src)[VR][HR] = c ? cr : cb;
+            float s;
+            if (HR == 1 && VR == 1) {
+                s = mul(src[0][0], sc);
+            } else if (VR == 1) {
+                s = mul(fmadd(src[0][0], sc, mul(src[0][HR - 1], sc)), 0.5f);
+            } else {
+                const float left = fmadd(src[0][0], sc, mul(src[VR - 1][0], sc));
+                const float right = fmadd(src[0][HR - 1], sc, mul(src[VR - 1][HR - 1], sc));
+                s = mul(add(left, right), 0.25f);
+            }
+            s_blk[G::NL + c * G::S + cx / 8][cy][cx % 8] = s;
+        }
+    }
+    __syncthreads();
+
+    // 3. column pass (along y) in registers, one thread per block column
+#pragma unroll
+    for (int ii = 0; ii < G::ITEMS; ++ii) {
+        const int i = tid + ii * STRIP_THREADS, blk = i / 8, u = i % 8;
+        float x[8];
+#pragma unroll
+        for (int y = 0; y < 8; ++y) x[y] = s_blk[blk][y][u];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s_blk[blk][k][u] = contract_row(x, p, k);
+    }
+    __syncthreads();
+
+    // 4. row pass (along x) in registers, / q, round, one thread per block
+    //    row v; the row's 8 coefficients go to the plane in one store
+    const int cw_plane = padded_w / HR;
+#pragma unroll
+    for (int ii = 0; ii < G::ITEMS; ++ii) {
+        const int blk = (tid + ii * STRIP_THREADS) / 8;
+        const bool luma = blk < G::NL;
+        int col;
+        short* dst;
+        if (luma) {
+            col = col0 + (blk % G::NBX) * 8;
+            dst = out_y + static_cast<size_t>(row0 + (blk / G::NBX) * 8 + v) * padded_w + col;
+        } else {
+            const int c = (blk - G::NL) / G::S;
+            col = col0 / HR + ((blk - G::NL) % G::S) * 8;
+            dst = (c ? out_cr : out_cb) + static_cast<size_t>(my * 8 + v) * cw_plane + col;
+        }
+        if (col >= (luma ? padded_w : cw_plane)) continue;   // past the plane's padded width
+        float x[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) x[u] = s_blk[blk][v][u];
+        unsigned w[4];
+#pragma unroll
+        for (int u = 0; u < 8; u += 2) {
+            const short lo = round_half_away(__fdiv_rn(contract_row(x, p, u), luma ? ql[u] : qc[u]));
+            const short hi =
+                round_half_away(__fdiv_rn(contract_row(x, p, u + 1), luma ? ql[u + 1] : qc[u + 1]));
+            w[u / 2] = pack2(lo, hi);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+}
+
+template <int HR, int VR, typename T>
+cudaError_t launch(const void* rgb, int height, int width, float maxval, const Consts& p,
+                   const float* q_luma, const float* q_chroma, short* out_y, short* out_cb,
+                   short* out_cr, cudaStream_t stream) {
+    using G = Strip<HR, VR, T>;
+    if ((reinterpret_cast<uintptr_t>(out_y) | reinterpret_cast<uintptr_t>(out_cb) |
+         reinterpret_cast<uintptr_t>(out_cr)) & 15)
+        return cudaErrorMisalignedAddress;
+    const int mcus_x = (width + G::MW - 1) / G::MW;
+    const int mcus_y = (height + G::MH - 1) / G::MH;
+    const int strips_x = (mcus_x + G::S - 1) / G::S;
+    const long long grid = static_cast<long long>(strips_x) * mcus_y;
+    if (grid < 1 || grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+    phase1_mm_kernel<HR, VR, T><<<static_cast<unsigned>(grid), STRIP_THREADS, 0, stream>>>(
+        static_cast<const T*>(rgb), height, width, mcus_x * G::MW, strips_x, maxval, p, q_luma,
         q_chroma, out_y, out_cb, out_cr);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_rates(int hr, int vr, const void* rgb, int height, int width, float maxval,
-                           const float* consts, const float* c, const float* q_luma,
-                           const float* q_chroma, short* out_y, short* out_cb, short* out_cr,
-                           cudaStream_t stream) {
+                           const Consts& p, const float* q_luma, const float* q_chroma,
+                           short* out_y, short* out_cb, short* out_cr, cudaStream_t stream) {
     if (hr == 2 && vr == 2)
-        return launch<2, 2, T>(rgb, height, width, maxval, consts, c, q_luma, q_chroma, out_y,
-                               out_cb, out_cr, stream);
+        return launch<2, 2, T>(rgb, height, width, maxval, p, q_luma, q_chroma, out_y, out_cb,
+                               out_cr, stream);
     if (hr == 2 && vr == 1)
-        return launch<2, 1, T>(rgb, height, width, maxval, consts, c, q_luma, q_chroma, out_y,
-                               out_cb, out_cr, stream);
+        return launch<2, 1, T>(rgb, height, width, maxval, p, q_luma, q_chroma, out_y, out_cb,
+                               out_cr, stream);
     if (hr == 1 && vr == 1)
-        return launch<1, 1, T>(rgb, height, width, maxval, consts, c, q_luma, q_chroma, out_y,
-                               out_cb, out_cr, stream);
+        return launch<1, 1, T>(rgb, height, width, maxval, p, q_luma, q_chroma, out_y, out_cb,
+                               out_cr, stream);
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // rgb: [height, width, 3] uint8 (elem_bytes 1) or uint16 (elem_bytes 2),
-// unpadded. consts: float32 [K_COUNT]. c: float32 [8, 8] DCT-II matrix.
-// q_luma/q_chroma: float32 [64] raster. out_y: int16 [PH, PW];
-// out_cb/out_cr: int16 [PH / vr, PW / hr] (PH, PW: the MCU-padded size).
+// unpadded, any alignment. consts_host: float32 [K_COUNT] and c_host:
+// float32 [8, 8] DCT-II matrix, both in host memory (copied into the
+// launch's parameters before this returns). q_luma/q_chroma: float32 [64]
+// raster, in device memory. out_y: int16 [PH, PW]; out_cb/out_cr: int16
+// [PH / vr, PW / hr] (PH, PW: the MCU-padded size); all three 16-byte
+// aligned.
 extern "C" int dmmt_phase1_mm(const void* rgb, int elem_bytes, int height, int width, int hr,
-                              int vr, float maxval, const float* consts, const float* c,
+                              int vr, float maxval, const float* consts_host, const float* c_host,
                               const float* q_luma, const float* q_chroma, short* out_y,
                               short* out_cb, short* out_cr, void* stream) {
+    if (!consts_host || !c_host) return static_cast<int>(cudaErrorInvalidValue);
+    Consts p;
+    memcpy(p.k, consts_host, sizeof(p.k));
+    memcpy(p.c, c_host, sizeof(p.c));
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (elem_bytes == 1)
-        err = dispatch_rates<uint8_t>(hr, vr, rgb, height, width, maxval, consts, c, q_luma,
-                                      q_chroma, out_y, out_cb, out_cr, s);
+        err = dispatch_rates<uint8_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
+                                      out_y, out_cb, out_cr, s);
     else if (elem_bytes == 2)
-        err = dispatch_rates<uint16_t>(hr, vr, rgb, height, width, maxval, consts, c, q_luma,
-                                       q_chroma, out_y, out_cb, out_cr, s);
+        err = dispatch_rates<uint16_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
+                                       out_y, out_cb, out_cr, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -30,18 +30,17 @@
 // Bound on the H100: 3 bytes in (6 for 16-bit samples) and 3 bytes of
 // int16 out per pixel at P420 against ~40 operations per pixel, so bytes:
 // 24.9 MB each way at 4K, 0.0149 ms at 3.35 TB/s. Design: one CTA of 128
-// threads owns a strip of 2048 pixels along an MCU row (P420 8 MCUs, 128 x
-// 16; P422 16 MCUs, 256 x 8; P444 32 MCUs, 256 x 8), so each pixel row it
-// reads is 384 or 768 contiguous bytes, loaded as 16-byte chunks into
-// shared memory (a chunk that crosses the ends of the image takes byte
-// loads, so any width and any alignment work). Each thread then converts
-// 16 pixels, one subsample unit (a 2x2 quad, a pair or a pixel) at a time,
-// so the full-resolution chroma stays in registers; luma and the
-// subsampled chroma go to shared 8 x 8 blocks with a row pitch of 9 floats,
-// which makes the row pass (a thread per block row) and the column pass (a
+// threads owns a strip of 2048 pixels along an MCU row, loaded as 16-byte
+// chunks into shared memory (strip.cuh, shared with the fused matmul phase
+// 1: any width, any alignment). Each thread then converts 16 pixels, one
+// subsample unit (a 2x2 quad, a pair or a pixel) at a time, so the
+// full-resolution chroma stays in registers; luma and the subsampled
+// chroma go to shared 8 x 8 blocks with a row pitch of 9 floats, which
+// makes the row pass (a thread per block row) and the column pass (a
 // thread per block column, its eight values in registers) free of bank
-// conflicts; every thread has 3, 4 or 6 rows and columns. The column pass quantizes into a shared int16
-// staging copy of the strip's blocks in zigzag order, and the CTA writes
+// conflicts; every thread has 3, 4 or 6 rows and columns. The column pass
+// quantizes into a shared int16 staging copy of the strip's blocks in
+// zigzag order, and the CTA writes
 // it with 16-byte stores: a strip's MCUs are consecutive, so its luma
 // blocks, its Cb blocks and its Cr blocks are three contiguous ranges of
 // the outputs. Padding is done in the integer domain: a sample past H or W
@@ -52,14 +51,14 @@
 #include <stdint.h>
 
 #include "dct8.cuh"
+#include "strip.cuh"
 
 namespace {
 
 using namespace dmmt;
 
-constexpr int THREADS = 128;
-constexpr int STRIP_PIXELS = 2048;
-constexpr int PITCH = 9;   // floats per row of a shared 8 x 8 block
+constexpr int THREADS = STRIP_THREADS;
+constexpr int PITCH = BLOCK_PITCH;
 
 // raster index -> zigzag position (inverse of the ZIGZAG scan table)
 __constant__ int kInvZigzag[64] = {
@@ -73,25 +72,6 @@ __constant__ int kInvZigzag[64] = {
     35, 36, 48, 49, 57, 58, 62, 63,
 };
 
-// The strip's geometry for sampling rates HR x VR and T-sized samples.
-template <int HR, int VR, typename T>
-struct Strip {
-    static constexpr int MW = 8 * HR, MH = 8 * VR, LPM = HR * VR;
-    static constexpr int SW = STRIP_PIXELS / MH;          // strip width, pixels
-    static constexpr int S = SW / MW;                     // MCUs per strip
-    static constexpr int NBX = SW / 8;                    // luma blocks across
-    static constexpr int NL = VR * NBX;                   // luma blocks (= S * LPM)
-    static constexpr int NB = NL + 2 * S;                 // all blocks
-    static constexpr int UNITS = STRIP_PIXELS / LPM / THREADS;  // subsample units per thread
-    static constexpr int ITEMS = NB * 8 / THREADS;        // block rows (columns) per thread
-    static constexpr int ROW_BYTES = SW * 3 * static_cast<int>(sizeof(T));
-    static constexpr int RAW_PITCH = ROW_BYTES + 32;      // room for a 16-byte head and tail
-    static constexpr int CHUNKS = ROW_BYTES / 16 + 2;     // 16-byte chunks a row can touch
-    static constexpr int IO_BYTES = (MH * RAW_PITCH > NB * 128) ? MH * RAW_PITCH : NB * 128;
-    static_assert(STRIP_PIXELS % (LPM * THREADS) == 0 && (NB * 8) % THREADS == 0, "even work");
-    static_assert(ROW_BYTES % 16 == 0 && IO_BYTES % 16 == 0, "16-byte rows");
-};
-
 template <int HR, int VR, typename T>
 __global__ void __launch_bounds__(THREADS) phase1_kernel(
     const T* __restrict__ rgb, int height, int width, int mcus_x, int strips_x,
@@ -100,41 +80,23 @@ __global__ void __launch_bounds__(THREADS) phase1_kernel(
     short* __restrict__ out_y, short* __restrict__ out_cb, short* __restrict__ out_cr) {
     using G = Strip<HR, VR, T>;
     constexpr int EB = static_cast<int>(sizeof(T));
+    // raw rows, later the int16 blocks
+    constexpr int IO_BYTES = (G::MH * G::RAW_PITCH > G::NB * 128) ? G::MH * G::RAW_PITCH : G::NB * 128;
+    static_assert(IO_BYTES % 16 == 0, "16-byte rows");
     __shared__ float s_k[K_COUNT];
     __shared__ float s_q[2][64];
     __shared__ float s_lut[256];                               // 8-bit samples / maxval
     __shared__ int s_zz[64];                                   // kInvZigzag, read per lane
     __shared__ float s_blk[G::NB][8][PITCH];                   // luma blocks, then Cb, Cr
-    __shared__ __align__(16) unsigned char s_io[G::IO_BYTES];  // raw rows, later int16 blocks
+    __shared__ __align__(16) unsigned char s_io[IO_BYTES];
 
     const int tid = threadIdx.x;
     const int my = blockIdx.x / strips_x, sx = blockIdx.x % strips_x;
     const int row0 = my * G::MH, col0 = sx * G::SW;
     const int n_px = min(G::SW, width - col0);                 // pixels of the strip inside W
-    const uintptr_t img_begin = reinterpret_cast<uintptr_t>(rgb);
-    const uintptr_t img_end = img_begin + static_cast<size_t>(height) * width * 3 * EB;
-    auto row_start = [&](int r) {
-        return img_begin + (static_cast<size_t>(row0 + r) * width + col0) * 3 * EB;
-    };
 
-    // 1. the strip's rows into shared memory, 16 bytes at a time; row r's
-    //    first sample lands at byte (its address mod 16) of its raw row
-    if (n_px > 0) {
-        for (int i = tid; i < G::MH * G::CHUNKS; i += THREADS) {
-            const int r = i / G::CHUNKS, c = i % G::CHUNKS;
-            if (row0 + r >= height) continue;
-            const uintptr_t start = row_start(r), a = (start & ~uintptr_t(15)) + 16 * c;
-            if (a >= start + static_cast<uintptr_t>(n_px) * 3 * EB) continue;
-            unsigned char* dst = s_io + r * G::RAW_PITCH + 16 * c;
-            if (a >= img_begin && a + 16 <= img_end) {
-                *reinterpret_cast<int4*>(dst) = __ldg(reinterpret_cast<const int4*>(a));
-            } else {
-                for (int j = 0; j < 16; ++j)
-                    if (a + j >= img_begin && a + j < img_end)
-                        dst[j] = __ldg(reinterpret_cast<const unsigned char*>(a + j));
-            }
-        }
-    }
+    // 1. the strip's rows into shared memory, 16 bytes at a time
+    if (n_px > 0) load_strip_rows<G>(s_io, rgb, height, width, row0, col0, n_px);
     for (int i = tid; i < K_COUNT; i += THREADS) s_k[i] = consts[i];
     for (int i = tid; i < 64; i += THREADS) {
         s_q[0][i] = q_luma[i];
@@ -159,7 +121,7 @@ __global__ void __launch_bounds__(THREADS) phase1_kernel(
 #pragma unroll
         for (int dy = 0; dy < VR; ++dy) {
             const int ly = cy * VR + dy;
-            const unsigned char* raw = s_io + ly * G::RAW_PITCH + (row_start(ly) & 15);
+            const unsigned char* raw = strip_row<G>(s_io, rgb, width, row0, col0, ly);
 #pragma unroll
             for (int dx = 0; dx < HR; ++dx) {
                 const int lx = cx * HR + dx;

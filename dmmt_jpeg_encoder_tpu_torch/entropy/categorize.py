@@ -67,18 +67,23 @@ def ac_symbols_and_structure(
 
 
 def symbol_histograms(
-    coeffs_zz: torch.Tensor, block_mask: torch.Tensor | None = None
+    coeffs_zz: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
+    block_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dc_hist[16], ac_hist[256]) int32 for [N, 64] zigzag blocks whose DC
-    entries are already DPCM deltas, counting only the blocks where
-    `block_mask` ([N], optional) is nonzero. A masked count always takes
-    the weighted kernel, as in the JAX package (the sharded encode's mask
-    over Cb and Cr together is no prefix)."""
+    entries are already DPCM deltas, or for a pair of them (Cb, Cr) as
+    their concatenation, counting only the blocks where `block_mask` ([N],
+    optional) is nonzero. The block-histogram kernel takes a pair as two
+    segments; the weighted kernel counts the concatenation. A masked count
+    always takes the weighted kernel, as in the JAX package (the sharded
+    encode's mask over Cb and Cr together is no prefix)."""
     from ..ops.block_hist import fused_block_histograms
     from ..ops.histogram import histogram
 
     if os.environ.get("DMMT_HIST", "fused") == "fused" and block_mask is None:
         return fused_block_histograms(coeffs_zz)
+    if not isinstance(coeffs_zz, torch.Tensor):
+        coeffs_zz = torch.cat(list(coeffs_zz))
     n = int(coeffs_zz.shape[0])
     weight = (torch.ones(n, dtype=torch.int32, device=coeffs_zz.device) if block_mask is None
               else (block_mask != 0).to(torch.int32))

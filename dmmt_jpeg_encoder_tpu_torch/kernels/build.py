@@ -51,7 +51,7 @@ _LL = ctypes.c_longlong
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "dmmt_phase1": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P),
-    "dmmt_block_hist": (_P, _LL, _LL, _P, _P, _P),
+    "dmmt_block_hist": (_P, _LL, _P, _LL, _P, _P, _P),
     "dmmt_scan_pack": (_P, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P),
     "dmmt_scan_pack_slab": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P),
     "dmmt_histogram_grouped": (_P, _P, _I, _LL, _I, _P, _P),

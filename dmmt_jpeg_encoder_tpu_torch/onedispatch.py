@@ -200,8 +200,8 @@ def pack_inputs(
     for i in range(n_images):
         l_dc, l_ac = symbol_histograms(luma[i * n_luma : (i + 1) * n_luma])
         # the chroma tables are shared by Cb and Cr: one pass over both
-        c_dc, c_ac = symbol_histograms(torch.cat([
-            cb[i * n_chroma : (i + 1) * n_chroma], cr[i * n_chroma : (i + 1) * n_chroma]]))
+        c_dc, c_ac = symbol_histograms((cb[i * n_chroma : (i + 1) * n_chroma],
+                                        cr[i * n_chroma : (i + 1) * n_chroma]))
         hists.append((l_dc, l_ac, c_dc, c_ac))
         stack += [pad_dc_histogram(l_dc), l_ac, pad_dc_histogram(c_dc), c_ac]
     tables = device_code_tables_batched(torch.stack(stack))

@@ -3,7 +3,11 @@
 Counterpart of dmmt_jpeg_encoder_tpu.ops.pallas_block_hist
 (`fused_block_histograms`, the JAX default DMMT_HIST=fused). The CUDA
 kernel is csrc/block_hist.cu; its plain version is
-`block_histograms_plain`.
+`block_histograms_plain`. The chroma call passes Cb and Cr as a pair of
+segments, counted in one launch as their concatenation without making
+it. A call needs no zero fill: the kernel's first CTA zeroes the output
+while the others count, and says so through a small state buffer that
+the wrapper keeps per stream (zeroed once, at the stream's first call).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -15,6 +19,12 @@ import torch
 
 from ..entropy.categorize import ac_symbols_and_structure, magnitude_category
 from ..kernels import build
+
+# int32 words of the kernel's state (csrc/block_hist.cu): a 64-bit ticket
+# count and epoch, then the flag of the epoch whose output is zeroed
+STATE_INTS = 4
+# (device index, stream handle) -> the kernel's state on that stream
+_STATES: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def block_histograms_plain(coeffs_zz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -29,29 +39,47 @@ def block_histograms_plain(coeffs_zz: torch.Tensor) -> tuple[torch.Tensor, torch
     return dc_hist.to(torch.int32), ac_hist.to(torch.int32)
 
 
+def _state(device: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    if key not in _STATES:
+        _STATES[key] = torch.zeros(STATE_INTS, dtype=torch.int32, device=device)
+    return _STATES[key]
+
+
 def fused_block_histograms(
-    coeffs_zz: torch.Tensor, n_valid: int | None = None
+    coeffs_zz: torch.Tensor | tuple[torch.Tensor, torch.Tensor], n_valid: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dc_hist int32 [16], ac_hist int32 [256]) over the first `n_valid`
-    (default: all) int16 [N, 64] zigzag blocks, DC already DPCM'd."""
-    n = int(coeffs_zz.shape[0])
+    (default: all) int16 [N, 64] zigzag blocks, DC already DPCM'd. A pair
+    of such tensors (Cb, Cr) counts as their concatenation."""
+    segments = (coeffs_zz,) if isinstance(coeffs_zz, torch.Tensor) else tuple(coeffs_zz)
+    if not 1 <= len(segments) <= 2:
+        raise ValueError(f"expected one or two segments of blocks, got {len(segments)}")
+    sizes = [int(s.shape[0]) for s in segments]
+    n = sum(sizes)
     n_valid = n if n_valid is None else int(n_valid)
     if not 0 <= n_valid <= n:
         raise ValueError(f"n_valid {n_valid} outside 0..{n}")
-    if coeffs_zz.device.type == "cpu":
-        return block_histograms_plain(coeffs_zz[:n_valid])
-    if coeffs_zz.device.type != "cuda":
-        raise ValueError(f"histogram kernel needs a CUDA tensor, got {coeffs_zz.device}")
-    if coeffs_zz.dtype != torch.int16 or coeffs_zz.ndim != 2 or coeffs_zz.shape[1] != 64:
-        raise ValueError(f"expected int16 [N, 64] blocks, got {coeffs_zz.dtype} {tuple(coeffs_zz.shape)}")
-    x = coeffs_zz.contiguous()
-    dc = torch.zeros(16, dtype=torch.int32, device=x.device)
-    ac = torch.zeros(256, dtype=torch.int32, device=x.device)
-    lib = build.load()
-    err = lib.dmmt_block_hist(
-        x.data_ptr(), n, n_valid, dc.data_ptr(), ac.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+    dev = segments[0].device
+    if any(s.device != dev for s in segments):
+        raise ValueError(f"segments on different devices: {[str(s.device) for s in segments]}")
+    if dev.type == "cpu":
+        whole = segments[0] if len(segments) == 1 else torch.cat(segments)
+        return block_histograms_plain(whole[:n_valid])
+    if dev.type != "cuda":
+        raise ValueError(f"histogram kernel needs a CUDA tensor, got {dev}")
+    for s in segments:
+        if s.dtype != torch.int16 or s.ndim != 2 or s.shape[1] != 64:
+            raise ValueError(f"expected int16 [N, 64] blocks, got {s.dtype} {tuple(s.shape)}")
+    a, *rest = (s.contiguous() for s in segments)
+    b = rest[0] if rest else None
+    n_a = min(n_valid, sizes[0])
+    stream = torch.cuda.current_stream(dev)
+    out = torch.empty(16 + 256, dtype=torch.int32, device=dev)
+    err = build.load().dmmt_block_hist(
+        a.data_ptr(), n_a, None if b is None else b.data_ptr(), n_valid - n_a,
+        _state(dev, stream).data_ptr(), out.data_ptr(), stream.cuda_stream,
     )
     build.check(err, "dmmt_block_hist")
     build.LAUNCHES["block_hist"] += 1
-    return dc, ac
+    return out[:16], out[16:]

@@ -24,7 +24,6 @@ import torch.nn.functional as F
 
 from ..config import ChromaSubsamplingPreset
 from ..kernels import build
-from ..utils.device import device_constant
 from .color import chroma_sums, f32, luma
 from .dct import dct_matrix
 from .fused_arai import kernel_constants
@@ -75,13 +74,13 @@ def fused_phase1(
     out_y = torch.empty((ph, pw), dtype=torch.int16, device=dev)
     out_cb = torch.empty((ph // vr, pw // hr), dtype=torch.int16, device=dev)
     out_cr = torch.empty_like(out_cb)
-    consts = device_constant(kernel_constants(), dev)
-    c = device_constant(dct_matrix(), dev)
+    # host arrays: the C entry point copies them into the launch's parameters
+    consts, c = kernel_constants(), dct_matrix()
     qy = luma_q.to(device=dev, dtype=torch.float32).contiguous()
     qc = chroma_q.to(device=dev, dtype=torch.float32).contiguous()
     err = build.load().dmmt_phase1_mm(
-        rgb.data_ptr(), rgb.element_size(), h, w, hr, vr, float(maxval), consts.data_ptr(),
-        c.data_ptr(), qy.data_ptr(), qc.data_ptr(), out_y.data_ptr(), out_cb.data_ptr(),
+        rgb.data_ptr(), rgb.element_size(), h, w, hr, vr, float(maxval), consts.ctypes.data,
+        c.ctypes.data, qy.data_ptr(), qc.data_ptr(), out_y.data_ptr(), out_cb.data_ptr(),
         out_cr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_phase1_mm")

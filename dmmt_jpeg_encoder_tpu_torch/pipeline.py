@@ -230,7 +230,7 @@ def run_device_pipeline(
                                  config.dct_variant)
     l_dc, l_ac = symbol_histograms(luma)
     # the chroma tables are shared by Cb and Cr: one count over both
-    c_dc, c_ac = symbol_histograms(torch.cat([cb, cr]))
+    c_dc, c_ac = symbol_histograms((cb, cr))
     return DeviceEncodeResult(luma, cb, cr, l_dc, l_ac, c_dc, c_ac)
 
 

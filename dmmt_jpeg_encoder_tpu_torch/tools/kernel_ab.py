@@ -1,8 +1,9 @@
 """Kernels of this checkout against another build of the same C entry
 points, on one card, in one process.
 
-    python -m dmmt_jpeg_encoder_tpu_torch.tools.kernel_ab OTHER_CSRC
-        [--rounds N] [--kinds dct,lookup,phase1,scan_pack,scan_pack_slab] [--split] [--split-this]
+    python -m dmmt_jpeg_encoder_tpu_torch.tools.kernel_ab OTHER_CSRC [--rounds N]
+        [--kinds dct,lookup,phase1,phase1_mm,block_hist,scan_pack,scan_pack_slab]
+        [--split] [--split-this]
 
 OTHER_CSRC is a csrc/ directory, for example the parent commit's unpacked
 with git archive. Its sources of the chosen kinds (with the headers beside
@@ -16,7 +17,10 @@ captured from encodes of the fixtures of tests/torch_port_fixtures.py:
   one_dispatch="off") and the fused batch's two grouped lookups of the
   16 x 1080p batch (table_lookup.cu);
 - phase1: the frame's pixels as the one-dispatch encode gives them to the
-  phase-1 kernel (phase1.cu);
+  phase-1 kernel (phase1.cu); phase1_mm: the same pixels as DMMT_P1=fused1
+  gives them to the fused matmul phase 1 (fused_phase1.cu);
+- block_hist: the frame's two block-histogram calls of the one-dispatch
+  encode, luma, then Cb and Cr (block_hist.cu);
 - scan_pack: the frame's scan as the one-dispatch encode gives it to the
   scan-pack kernel, alone and with a `valid` mask that keeps the first half
   of the MCUs (as chip_smoke.py builds it); scan_pack_slab: the 16 x 1080p
@@ -30,7 +34,15 @@ A scan-pack source is called through the C signature it declares: the
 three-launch one (scratch block_bits, chunk_sums, chunk_base, 256-block
 chunks) or the one-launch one (ceil(N / TILE) + 1 int64 of look-back
 state per image, TILE read from the source, zeroed in one fill with the
-words as the wrapper does: fused_pack.zeroed_buffers). Rounds run in the order other, this, this, other; every time is
+words as the wrapper does: fused_pack.zeroed_buffers). A block-histogram
+build is called through its signature too: the one-segment one (the
+chroma call on the concatenation of Cb and Cr, made outside the timed
+calls, and the two zero fills of the histograms in each call, as that
+wrapper ran them) or the two-segment one (the state buffer kept between
+calls, no fill). A fused matmul phase-1 build takes its color constants
+and DCT matrix from device memory or, where its source declares c_host,
+from host memory (copied into the launch's parameters). Rounds run in
+the order other, this, this, other; every time is
 tools/timing.device_ms of one call list, beside the library call that
 computes the same function where there is one (torch.matmul by M,
 torch.gather). Prints one JSON line per (input, build, round), one summary
@@ -44,7 +56,9 @@ pipes reach; then the card's name and power limit.
 pack alone (three-launch: bits, chunk scan, emit; one-launch: the kernel
 after the zero fill of its look-back state; through a small shim that
 includes its scan_pack.cu), the zero fills alone, and OTHER_CSRC's
-phase-1 kernel; with
+phase-1 kernels; on the block-histogram inputs, the luma and the chroma
+launch alone, the two zero fills of a one-segment call, and the
+torch.cat of Cb and Cr that a one-segment chroma call needs; with
 --split-this the same for this checkout's; one JSON line each. Needs a
 card and nvcc.
 """
@@ -65,19 +79,25 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..kernels import build
 from .timing import device_ms
 
 REPO = Path(__file__).resolve().parents[2]
-KINDS = ("dct", "lookup", "phase1", "scan_pack", "scan_pack_slab")
+KINDS = ("dct", "lookup", "phase1", "phase1_mm", "block_hist", "scan_pack", "scan_pack_slab")
 SOURCES = {"dct": "block_dct.cu", "lookup": "table_lookup.cu", "phase1": "phase1.cu",
+           "phase1_mm": "fused_phase1.cu", "block_hist": "block_hist.cu",
            "scan_pack": "scan_pack.cu", "scan_pack_slab": "scan_pack.cu"}
 ENTRY_POINTS = {"dct": "dmmt_block_dct_zz", "lookup": "dmmt_table_lookup_grouped",
-                "phase1": "dmmt_phase1", "scan_pack": "dmmt_scan_pack",
+                "phase1": "dmmt_phase1", "phase1_mm": "dmmt_phase1_mm",
+                "block_hist": "dmmt_block_hist", "scan_pack": "dmmt_scan_pack",
                 "scan_pack_slab": "dmmt_scan_pack_slab"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the one-segment block histogram's C signature (blocks, n_blocks, n_valid,
+# zeroed dc and ac)
+ONE_SEGMENT_HIST_SIGNATURE = (_P, _LL, _LL, _P, _P, _P)
 # the three-launch scan pack's C signatures (block_bits, chunk_sums,
 # chunk_base scratch; 256-block chunks)
 THREE_LAUNCH_SIGNATURES = {
@@ -125,12 +145,20 @@ def three_launch(csrc: Path) -> bool:
     return "long long* chunk_base" in (csrc / "scan_pack.cu").read_text()
 
 
-def convention(csrc: Path) -> int:
-    """How to call csrc's scan pack: 0 for the three-launch signature, else
-    the blocks per tile of the one-launch one."""
-    if three_launch(csrc):
-        return 0
-    return int(re.search(r"constexpr int TILE = (\d+);", (csrc / "scan_pack.cu").read_text())[1])
+def convention(csrc: Path, kind: str) -> int:
+    """How to call csrc's kernel of `kind`. Scan pack: 0 for the
+    three-launch signature, else the blocks per tile of the one-launch one.
+    Block histogram: 0 for one segment, 1 for two. Fused matmul phase 1: 0
+    for constants in device memory, 1 for host memory. Else 0."""
+    if kind.startswith("scan_pack"):
+        if three_launch(csrc):
+            return 0
+        return int(re.search(r"constexpr int TILE = (\d+);", (csrc / "scan_pack.cu").read_text())[1])
+    if kind == "block_hist":
+        return int("long long n_blocks, long long n_valid" not in (csrc / "block_hist.cu").read_text())
+    if kind == "phase1_mm":
+        return int("c_host" in (csrc / "fused_phase1.cu").read_text())
+    return 0
 
 
 def _compile(srcs: list[Path], tag: str, extra: tuple = (), included: tuple = ()) -> Path:
@@ -169,6 +197,8 @@ def build_other(csrc: Path, kinds: list[str]) -> ctypes.CDLL:
     sigs = {ENTRY_POINTS[k]: build._SIGNATURES[ENTRY_POINTS[k]] for k in kinds}
     if csrc.joinpath("scan_pack.cu") in srcs and three_launch(csrc):
         sigs.update({k: v for k, v in THREE_LAUNCH_SIGNATURES.items() if k in sigs})
+    if "block_hist" in kinds and not convention(csrc, "block_hist"):
+        sigs["dmmt_block_hist"] = ONE_SEGMENT_HIST_SIGNATURE
     return _bind(lib, sigs)
 
 
@@ -213,10 +243,11 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     import dmmt_jpeg_encoder_tpu_torch as port
     from .. import onedispatch
     from ..bitstream import device_pack
-    from ..ops import fused, fused_arai
+    from ..ops import block_hist, fused, fused_arai, fused_phase1
     from torch_port_fixtures import BATCH_FIXTURES, batch_frames, fixture_pixels
 
     calls: list = []
+    hist_calls: list = []
 
     def grab_dct(real):
         def wrapped(blocks, qtable):
@@ -237,6 +268,13 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         def wrapped(rgb, maxval, luma_q, chroma_q, preset):
             calls.append((_contig(rgb), maxval, _contig(luma_q), _contig(chroma_q), preset))
             return real(rgb, maxval, luma_q, chroma_q, preset)
+        return wrapped
+
+    def grab_hist(real):
+        def wrapped(coeffs_zz, n_valid=None):
+            segs = coeffs_zz if isinstance(coeffs_zz, (tuple, list)) else (coeffs_zz,)
+            hist_calls.append(tuple(_contig(x) for x in segs))
+            return real(coeffs_zz, n_valid)
         return wrapped
 
     def grab_pack(real):
@@ -270,19 +308,31 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
                 calls.clear()
         finally:
             os.environ.pop("DMMT_NO_FUSED_PACK")
-    if "phase1" in kinds or "scan_pack" in kinds:
-        with _patched(fused_arai, "fused_arai_phase1", grab_phase1):
-            with _patched(onedispatch, "fused_pack_words", grab_pack):
-                port.encode_array(px, 255, cfg, device=dev)
+    if {"phase1", "block_hist", "scan_pack"} & set(kinds):
+        with _patched(fused_arai, "fused_arai_phase1", grab_phase1), \
+                _patched(onedispatch, "fused_pack_words", grab_pack), \
+                _patched(block_hist, "fused_block_histograms", grab_hist):
+            port.encode_array(px, 255, cfg, device=dev)
         p1, pack = calls
         calls.clear()
         if "phase1" in kinds:
             inputs["phase1 4k_p420 (uint8 P420)"] = ("phase1", [p1])
+        if "block_hist" in kinds:
+            inputs["block_hist 4k_p420 (luma; Cb, Cr)"] = ("block_hist", hist_calls[:])
         if "scan_pack" in kinds:
             n, stride = int(pack[0].shape[0]), pack[1]
             inputs["scan_pack 4k_p420"] = ("scan_pack", [(*pack, None)])
             inputs["scan_pack 4k_p420 valid prefix"] = (
                 "scan_pack", [(*pack, _prefix_mask(n, stride, None, dev))])
+    if "phase1_mm" in kinds:
+        os.environ["DMMT_P1"] = "fused1"
+        try:
+            with _patched(fused_phase1, "fused_phase1", grab_phase1):
+                port.encode_array(px, 255, cfg, device=dev)
+        finally:
+            os.environ.pop("DMMT_P1")
+        inputs["phase1_mm 4k_p420 (uint8 P420, DMMT_P1=fused1)"] = ("phase1_mm", calls[:])
+        calls.clear()
     if "scan_pack_slab" in kinds:
         os.environ["DMMT_SLAB_ONEPACK"] = "1"
         try:
@@ -304,6 +354,15 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
+def _arg(x):
+    """A C argument: a tensor's or array's address, else the value."""
+    if isinstance(x, torch.Tensor):
+        return x.data_ptr()
+    if isinstance(x, np.ndarray):
+        return x.ctypes.data
+    return x
+
+
 def _phase1_args(call) -> tuple:
     """(pixels, C arguments after the pixels' pointer, outputs) of one
     phase-1 call, as the wrapper makes them."""
@@ -320,6 +379,48 @@ def _phase1_args(call) -> tuple:
     consts = torch.from_numpy(kernel_constants()).to(dev)
     qs = [q.to(device=dev, dtype=torch.float32).contiguous() for q in (lq, cq)]
     return (rgb, (rgb.element_size(), h, w, hr, vr, float(maxval), consts, *qs, *outs), outs)
+
+
+def _phase1_mm_args(call, conv: int) -> tuple:
+    """(pixels, C arguments after the pixels' pointer, outputs) of one fused
+    matmul phase-1 call in the build's convention (conv 1: the color
+    constants and the DCT matrix from host memory)."""
+    from ..ops.dct import dct_matrix
+    from ..ops.fused_arai import kernel_constants
+    from ..ops.geometry import padded_size
+
+    rgb, maxval, lq, cq, preset = call
+    dev = rgb.device
+    h, w = int(rgb.shape[0]), int(rgb.shape[1])
+    ph, pw = padded_size(h, w, preset)
+    hr, vr = preset.horizontal_rate, preset.vertical_rate
+    outs = [torch.empty((ph, pw), dtype=torch.int16, device=dev)]
+    outs += [torch.empty((ph // vr, pw // hr), dtype=torch.int16, device=dev) for _ in range(2)]
+    consts = [kernel_constants(), dct_matrix()]
+    if not conv:
+        consts = [torch.from_numpy(x).to(dev) for x in consts]
+    qs = [q.to(device=dev, dtype=torch.float32).contiguous() for q in (lq, cq)]
+    return (rgb, (rgb.element_size(), h, w, hr, vr, float(maxval), *consts, *qs, *outs), outs)
+
+
+def _hist_buffers(call, conv: int) -> tuple:
+    """(C arguments, the tensors the call zero-fills first, outputs) of one
+    block-histogram call in the build's convention: one segment (Cb and Cr
+    concatenated here, zeroed dc and ac) or two (the state kept between
+    calls, zeroed once; an unfilled [272] output)."""
+    dev = call[0].device
+    if conv:
+        from ..ops.block_hist import STATE_INTS
+
+        a, b = call[0], (call[1] if len(call) > 1 else None)
+        state = torch.zeros(STATE_INTS, dtype=torch.int32, device=dev)
+        out = torch.empty(272, dtype=torch.int32, device=dev)
+        cargs = (a, int(a.shape[0]), b, 0 if b is None else int(b.shape[0]), state, out)
+        return cargs, (), [out[:16], out[16:]]
+    x = call[0] if len(call) == 1 else torch.cat(call)
+    dc, ac = (torch.zeros(n, dtype=torch.int32, device=dev) for n in (16, 256))
+    n = int(x.shape[0])
+    return (x, n, n, dc, ac), (dc, ac), [dc, ac]
 
 
 def _pack_buffers(call, conv: int, kind: str) -> tuple:
@@ -356,9 +457,13 @@ def runner(lib, kind: str, args: list, conv: int = 0):
             outs.append(torch.empty((a.shape[0], 64) if kind == "dct" else a.shape,
                                     dtype=torch.int16 if kind == "dct" else torch.int32,
                                     device=a.device))
-        elif kind == "phase1":
-            rgb, cargs, o = _phase1_args(call)
+        elif kind in ("phase1", "phase1_mm"):
+            rgb, cargs, o = _phase1_args(call) if kind == "phase1" else _phase1_mm_args(call, conv)
             prepared.append((rgb, cargs))
+            outs.append(o)
+        elif kind == "block_hist":
+            cargs, fills, o = _hist_buffers(call, conv)
+            prepared.append((cargs, fills))
             outs.append(o)
         else:
             bufs = _pack_buffers(call, conv, kind)
@@ -374,10 +479,14 @@ def runner(lib, kind: str, args: list, conv: int = 0):
             (a, b, _), o = args[k], outs[k]
             err = lib.dmmt_table_lookup_grouped(a.data_ptr(), b.data_ptr(), int(a.shape[0]),
                                                 int(a.shape[1]), int(b.shape[1]), o.data_ptr(), stream_)
-        elif kind == "phase1":
+        elif kind in ("phase1", "phase1_mm"):
             rgb, cargs = prepared[k]
-            err = lib.dmmt_phase1(rgb.data_ptr(), *(_ptr(x) if isinstance(x, torch.Tensor) else x
-                                                    for x in cargs), stream_)
+            err = getattr(lib, entry)(rgb.data_ptr(), *(_arg(x) for x in cargs), stream_)
+        elif kind == "block_hist":
+            cargs, fills = prepared[k]
+            for t in fills:
+                t.zero_()
+            err = lib.dmmt_block_hist(*(_arg(x) for x in cargs), stream_)
         else:
             scan, stride, lpm, codes, lens, n_words, valid = args[k]
             words, total, scratch, fill = prepared[k]
@@ -397,7 +506,9 @@ def runner(lib, kind: str, args: list, conv: int = 0):
 
 def plain(kind: str, args: list) -> list:
     from ..bitstream.device_pack import pack_scan_plain, pack_scan_slab_plain
+    from ..ops.block_hist import block_histograms_plain
     from ..ops.fused import fused_reference
+    from ..ops.fused_phase1 import fused_phase1_reference
     from ..ops.lookup import table_lookup_grouped_plain
     from ..pipeline import phase1_zigzag_blocks
 
@@ -407,6 +518,10 @@ def plain(kind: str, args: list) -> list:
         return [table_lookup_grouped_plain(a, b) for a, b, _ in args]
     if kind == "phase1":
         return [list(phase1_zigzag_blocks(*call)) for call in args]
+    if kind == "phase1_mm":
+        return [list(fused_phase1_reference(*call)) for call in args]
+    if kind == "block_hist":
+        return [list(block_histograms_plain(torch.cat(call))) for call in args]
     fn = pack_scan_slab_plain if kind == "scan_pack_slab" else pack_scan_plain
     return [list(fn(*call[:6], valid=call[6])) for call in args]
 
@@ -476,18 +591,23 @@ def gpu_line() -> str:
 def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
     """ms of each launch of csrc's scan pack alone (three-launch; for the
     one launch, with the zero fill of its look-back state), of the zero
-    fills alone and of the whole call, and of csrc's phase-1 kernel, on the
-    captured inputs; lib_all is csrc's full build."""
-    conv = convention(csrc)
-    lib = build_split(csrc) if not conv else None
+    fills alone and of the whole call; of csrc's phase-1 kernels; and of
+    csrc's block-histogram launches alone (luma; chroma), a one-segment
+    call's two zero fills and the torch.cat of Cb and Cr, and the whole
+    pair of calls; on the captured inputs; lib_all is csrc's full build."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     out = {}
     for name, (kind, calls) in inputs.items():
-        if kind == "phase1":
-            out[name] = {"phase1 kernel": device_ms(runner(lib_all, kind, calls)[0])}
+        conv = convention(csrc, kind)
+        if kind in ("phase1", "phase1_mm"):
+            out[name] = {f"{kind} kernel": device_ms(runner(lib_all, kind, calls, conv)[0])}
+            continue
+        if kind == "block_hist":
+            out[name] = hist_split(lib_all, calls, conv)
             continue
         if not kind.startswith("scan_pack"):
             continue
+        lib = build_split(csrc) if not conv else None
         scan, stride, lpm, codes, lens, n_words, valid = calls[0]
         words, total, scratch, fill = _pack_buffers(calls[0], conv, kind)
         b, n = (int(scan.shape[0]), int(scan.shape[1])) if kind == "scan_pack_slab" else (1, int(scan.shape[0]))
@@ -527,6 +647,32 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
     return out
 
 
+def hist_split(lib, calls: list, conv: int) -> dict:
+    """ms of each block-histogram launch alone (a one-segment build's on
+    histograms zeroed once, outside the timing), of a one-segment call's
+    two zero fills and of the torch.cat it needs for Cb and Cr, and of the
+    whole pair of calls as the wrappers run them."""
+    run, singles, _ = runner(lib, "block_hist", calls, conv)
+    t = {}
+    for call, label in zip(calls, ("luma", "chroma")):
+        cargs, fills, _ = _hist_buffers(call, conv)
+        for x in fills:
+            x.zero_()
+        t[f"{label} launch ({len(call)} segment{'s' * (len(call) > 1)} as called)"] = device_ms(
+            lambda cargs=cargs: build.check(lib.dmmt_block_hist(
+                *(_arg(x) for x in cargs), torch.cuda.current_stream().cuda_stream), "dmmt_block_hist"))
+        if len(call) > 1:
+            t["torch.cat([cb, cr])"] = device_ms(lambda call=call: torch.cat(call))
+    if not conv:
+        dev = calls[0][0].device
+        t["two torch.zeros (16, 256)"] = device_ms(
+            lambda: [torch.zeros(n, dtype=torch.int32, device=dev) for n in (16, 256)])
+    for k, fn in enumerate(singles):
+        t[f"call {k} as the wrapper runs it (fills + launch)"] = device_ms(fn)
+    t["whole pair of calls (fills + launches; no cat)"] = device_ms(run)
+    return t
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other_csrc", type=Path)
@@ -546,7 +692,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     csrc = args.other_csrc.resolve()
     libs = {"other": build_other(csrc, kinds), "this": build.load()}
-    conv = {"other": convention(csrc), "this": convention(build.CSRC)}
+    conv = {label: {k: convention(c, k) for k in KINDS}
+            for label, c in (("other", csrc), ("this", build.CSRC))}
     order = ["other", "this", "this", "other"] * args.rounds
     times: dict = {}
     bad: list[str] = []
@@ -565,7 +712,7 @@ def main(argv=None) -> int:
             refs["the encode's kernel"] = [c[2] for c in calls]
         runs, singles = {}, {}
         for label, lib in libs.items():
-            run, singles[label], outs = runner(lib, kind, calls, conv[label])
+            run, singles[label], outs = runner(lib, kind, calls, conv[label][kind])
             run()
             torch.cuda.synchronize()
             refs[f"the {label} build"] = outs

@@ -223,7 +223,7 @@ def test_nvcc_command_line():
     assert [s.name for s in build.sources()] == [
         "block_dct.cu", "block_hist.cu", "emission_pack.cu", "fused_phase1.cu", "histogram.cu",
         "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "probe.cu", "scan_pack.cu", "table_lookup.cu"]
-    assert [h.name for h in build.headers()] == ["dct8.cuh"]
+    assert [h.name for h in build.headers()] == ["dct8.cuh", "strip.cuh"]
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))
         joined = " ".join(cmd)

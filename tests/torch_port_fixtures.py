@@ -196,6 +196,35 @@ PHASE1_EDGE_CASES = tuple(
      (15, 16, "P420", 1), (9, 35, "P444", 1))
 
 
+# Edge cases of the block-histogram kernel (csrc/block_hist.cu), shared the
+# same way: (content, segment sizes, n_valid or None for all). Block counts
+# around its warps' groups of 4 blocks, each with the prefixes 0, 1, N - 1
+# and N; the coding corners of the scan-pack cases (blocks with no AC, all
+# 63 AC, only position 63, zero runs of 15-48, DC category 11 and AC
+# category 10); chroma calls of two segments of unequal and odd lengths,
+# with prefixes that end in either segment.
+BLOCK_HIST_EDGE_N = (1, 7, 8, 9, 127, 128, 129, 389)
+BLOCK_HIST_EDGE_CASES = tuple(
+    ("random", (n,), nv) for n in BLOCK_HIST_EDGE_N for nv in sorted({0, 1, n - 1, n})
+) + tuple(
+    (content, (3 * SCAN_PACK_TILE + 5,), None)
+    for content in ("no_ac", "all_ac", "only_63", "zero_runs", "extreme")
+) + tuple(
+    ("random", sizes, None) for sizes in ((1, 0), (0, 7), (9, 4), (129, 127), (389, 1), (7, 389))
+) + (("random", (129, 127), 50), ("random", (129, 127), 200), ("extreme", (389, 129), 300))
+
+
+def block_hist_edge_segments(case: tuple) -> list[np.ndarray]:
+    """The int16 [n, 64] blocks of each segment of a BLOCK_HIST_EDGE_CASES
+    case (DC already DPCM'd)."""
+    content, sizes, _ = case
+    rng = np.random.default_rng(BLOCK_HIST_EDGE_CASES.index(case) + 9000)
+    pool = (random_blocks(int(rng.integers(1 << 30))) if content == "random"
+            else scan_pack_edge_blocks(content)[0])
+    blocks = pool[rng.integers(0, len(pool), sum(sizes))]
+    return [np.ascontiguousarray(part) for part in np.split(blocks, [sizes[0]])[: len(sizes)]]
+
+
 def scan_pack_edge_blocks(case: str) -> tuple[np.ndarray, int, int]:
     """One SCAN_PACK_EDGE_CASES case: (blocks int16 [N, 64], stride, lpm)."""
     rng = np.random.default_rng(SCAN_PACK_EDGE_CASES.index(case) + 7000)
