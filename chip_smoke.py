@@ -51,7 +51,15 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    to 389 with the prefixes 0, 1, N - 1 and N, the scan pack's coding
    corners, chroma calls of two segments of unequal and odd lengths) and
    for phase 1 and the fused matmul phase 1 (1x1 to 333x1001, rows that
-   are no whole 16-byte chunks, each preset, 16-bit samples, maxval 1);
+   are no whole 16-byte chunks, each preset, 16-bit samples, maxval 1),
+   for the matmul plane DCT (widths of 1 to 241 groups, one and three
+   group rows, stacked chroma; saturated groups, DCs on x.5 after / q, a
+   table past 8 bits), with its division by 8-bit table entries held
+   against __fdiv_rn over every finite float32, and for the emission pack
+   (N of 1 and around its 32-block tile,
+   2040-bit blocks past its shared word window beside tiles within it,
+   masked blocks and a tile of them, two and three images at word-aligned
+   bases, a word buffer that drops the stream's second half);
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -486,7 +494,9 @@ def main() -> int:
         interleave_scan,
         pack_scan_plain,
         pack_scan_slab_plain,
+        pack_to_words,
     )
+    from dmmt_jpeg_encoder_tpu_torch.bitstream.emission_pack import pack_emission_words
     from dmmt_jpeg_encoder_tpu_torch.bitstream.fused_pack import (
         fused_pack_words,
         fused_pack_words_slab,
@@ -512,6 +522,8 @@ def main() -> int:
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_phase1 import fused_phase1, fused_phase1_reference
     from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
     from dmmt_jpeg_encoder_tpu_torch.ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
+    from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import division_check as mxu_division_check
+    from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import mxu_dct_reference, plane_dct_quant_mxu
     from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
     from dmmt_jpeg_encoder_tpu_torch.pipeline import (
         dc_dpcm,
@@ -528,9 +540,11 @@ def main() -> int:
         BATCH_FIXTURES,
         BLOCK_DCT_EDGE_N,
         BLOCK_HIST_EDGE_CASES,
+        EMISSION_PACK_EDGE_CASES,
         FIXTURES,
         LOOKUP_EDGE_SHAPES,
         PHASE1_EDGE_CASES,
+        PLANE_MM_EDGE_SHAPES,
         ROUTE_BATCHES,
         ROUTES,
         SCAN_PACK_EDGE_CASES,
@@ -541,9 +555,12 @@ def main() -> int:
         batch_frames,
         block_dct_edge_inputs,
         block_hist_edge_segments,
+        emission_pack_edge_inputs,
+        emission_pack_tile_arms,
         fixture_pixels,
         lookup_edge_inputs,
         phase1_edge_pixels,
+        plane_mm_edge_inputs,
         scan_pack_edge_blocks,
         scan_pack_edge_mask,
         scan_pack_tables,
@@ -946,6 +963,40 @@ def main() -> int:
             check_equal(torch, errs, "phase1_mm", what, fused_phase1(xin, maxval, lq, cq, preset), want_mm)
     log(f"edge cases: phase1 == plain and phase1_mm == plain on {len(PHASE1_EDGE_CASES)} "
         "(H, W, preset, maxval) cases, also from unaligned views")
+    for h, w in PLANE_MM_EDGE_SHAPES:
+        plane_np, q_np = plane_mm_edge_inputs(h, w)
+        plane, q = torch.from_numpy(plane_np).to(dev), torch.from_numpy(q_np).to(dev)
+        want = mxu_dct_reference(plane, q)
+        for label, xin in (("", plane), (" unaligned", unaligned(plane))):
+            check_equal(torch, errs, "plane_dct_mm", f"edge {h}x{w}{label}",
+                        plane_dct_quant_mxu(xin, q), want)
+    # the division the kernel uses for 8-bit tables, over every finite x
+    t0 = time.perf_counter()
+    _, coefficients = mxu_division_check(dev)
+    quotients, _ = mxu_division_check(dev, 0.25)
+    if coefficients or quotients:
+        raise AssertionError(f"plane_dct_mm division: {coefficients} coefficients over every finite x, "
+                             f"{quotients} quotients with |x| >= 0.25 differ from __fdiv_rn's")
+    log(f"plane_dct_mm division by q in 1..255: every finite x's coefficient, and every quotient "
+        f"with |x| >= 0.25, equal __fdiv_rn's ({time.perf_counter() - t0:.1f} s)")
+    log(f"edge shapes: plane_dct_mm == plain on {len(PLANE_MM_EDGE_SHAPES)} (H, W) planes "
+        "(saturated groups, DCs on x.5 after / q, a table past 8 bits), also from unaligned views")
+    emit_arms = {}
+    for case in EMISSION_PACK_EDGE_CASES:
+        values, lens, offs, bits, n_words, boff = emission_pack_edge_inputs(case)
+        em = [torch.from_numpy(x).to(dev) for x in (values, lens, offs, bits)]
+        tb = None if boff is None else torch.from_numpy(boff).to(dev)
+        want = pack_to_words(*em, n_words, tb)
+        for label, ein in (("", em), (" unaligned", [*(unaligned(x) for x in em[:3]), em[3]])):
+            check_equal(torch, errs, "pack_emissions", f"edge {case}{label}",
+                        pack_emission_words(*ein, n_words, boff=tb), want)
+        emit_arms[case] = emission_pack_tile_arms(bits, boff)
+    reached = {arm for arms in emit_arms.values() for arm in arms}
+    if reached != {"empty", "shared", "over-full"}:
+        raise AssertionError(f"pack_emissions edge: the cases' tiles take only {sorted(reached)}")
+    arm_counts = {arm: sum(arms.count(arm) for arms in emit_arms.values()) for arm in sorted(reached)}
+    log(f"edge cases: pack_emissions == plain on {len(EMISSION_PACK_EDGE_CASES)} (content, N, "
+        f"images, short) cases (tiles by arm {arm_counts}), also from unaligned views")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}

@@ -3,10 +3,13 @@
 Counterpart of dmmt_jpeg_encoder_tpu.bitstream.pallas_pack
 (`pallas_pack_words`: its fragment kernel and its merge kernel). The CUDA
 kernel is csrc/emission_pack.cu, one launch for both TPU kernels: the
-fragment/merge split worked around Mosaic's lack of a scatter. Its plain
-version is device_pack.pack_to_words. The TPU wrapper rounded the word
-buffer up to a power of two of its staging rows (pack_words_capacity);
-here the caller sizes it as the words it needs + 2.
+fragment/merge split worked around Mosaic's lack of a scatter: one CTA
+per tile of 32 blocks assembles the tile's words in shared memory and
+stores them once; the last tile also writes the total bit count. Its
+plain version is device_pack.pack_to_words. The TPU wrapper rounded the
+word buffer up to a power of two of its staging rows (pack_words_capacity);
+here the caller sizes it as the words it needs + 2, zeroed here, so words
+in the gaps between images read 0.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -47,14 +50,17 @@ def pack_emission_words(
     if values.device.type != "cuda":
         raise ValueError(f"emission-pack kernel needs a CUDA tensor, got {values.device}")
     dev = values.device
-    boff, total_bits = block_offsets(block_bits, boff)
-    val, ln, off = (x.to(device=dev, dtype=torch.int32).contiguous() for x in (values, lens, offs))
-    boff = boff.to(dev).contiguous()
+    if boff is None:
+        boff = block_offsets(block_bits)[0]
+    val, ln, off, bits = (x.to(device=dev, dtype=torch.int32).contiguous()
+                          for x in (values, lens, offs, block_bits))
+    boff = boff.to(device=dev, dtype=torch.int64).contiguous()
     words = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    total_bits = torch.empty((), dtype=torch.int64, device=dev)
     lib = build.load()
     err = lib.dmmt_pack_emissions(
-        val.data_ptr(), ln.data_ptr(), off.data_ptr(), boff.data_ptr(), n, words.data_ptr(),
-        n_words, torch.cuda.current_stream(dev).cuda_stream,
+        val.data_ptr(), ln.data_ptr(), off.data_ptr(), boff.data_ptr(), bits.data_ptr(), n,
+        words.data_ptr(), n_words, total_bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_pack_emissions")
     build.LAUNCHES["pack_emissions"] += 1

@@ -14,8 +14,6 @@
 //   fused1, the SIMPLE and SEPARATED variants; ops/dct.contract8): term n
 //   goes to accumulator n mod 4, the first term of each a plain product,
 //   combined as (a0 + a1) + (a2 + a3).
-// - matmul_dct_quant_tile: C X C^T of every 8x8 group of a shared-memory
-//   tile (column pass, then row pass, each by contract8), / q, round.
 //
 // Device functions cannot be shared between the library's separately
 // compiled sources (no relocatable device code), hence this header.
@@ -97,37 +95,6 @@ __device__ __forceinline__ float contract8(const float (&x)[8], const float* w) 
 __device__ __forceinline__ short round_half_away(float x) {
     const float a = floorf(add(fabsf(x), 0.5f));
     return static_cast<short>(static_cast<int>(x > 0.0f ? a : (x < 0.0f ? -a : 0.0f)));
-}
-
-// The matmul DCT of a rows x cols float32 tile in shared memory (row stride
-// ld; rows and cols multiples of 8), then / q and round, into the int16
-// plane `out` (row stride out_ld) at the tile's place; only the first
-// `valid_cols` columns are written. c: the DCT matrix C [8][8] (row k =
-// frequency), q: the raster table [64]. Every thread of the block calls it;
-// it synchronizes the block between the two passes and before it returns.
-__device__ inline void matmul_dct_quant_tile(float* s, int rows, int cols, int ld,
-                                             const float* c, const float* q, short* out,
-                                             size_t out_ld, int valid_cols) {
-    // column pass (over y): one thread per (8-row group, column)
-    for (int i = threadIdx.x; i < (rows / 8) * cols; i += blockDim.x) {
-        float* col = s + (i / cols) * 8 * ld + i % cols;
-        float x[8];
-        for (int y = 0; y < 8; ++y) x[y] = col[y * ld];
-        for (int v = 0; v < 8; ++v) col[v * ld] = contract8(x, c + v * 8);
-    }
-    __syncthreads();
-    // row pass (over x), / q, round: one thread per (row, 8-column group)
-    for (int i = threadIdx.x; i < rows * (cols / 8); i += blockDim.x) {
-        const int r = i / (cols / 8), g = i % (cols / 8);
-        if (g * 8 >= valid_cols) continue;
-        const float* row = s + r * ld + g * 8;
-        float x[8];
-        for (int j = 0; j < 8; ++j) x[j] = row[j];
-        short* o = out + static_cast<size_t>(r) * out_ld + g * 8;
-        const float* qr = q + (r % 8) * 8;
-        for (int u = 0; u < 8; ++u) o[u] = round_half_away(__fdiv_rn(contract8(x, c + u * 8), qr[u]));
-    }
-    __syncthreads();
 }
 
 }  // namespace dmmt

@@ -8,7 +8,9 @@ MXU. What it computes is an 8-term contraction per output, column pass
 first; the JAX reference's bits are those of XLA's CPU backend, whose
 summation order ops/dct.contract8 reproduces. Not Arai-bit-exact: the
 route is opt-in, as in the JAX package. The CUDA kernel is
-csrc/mxu_dct.cu; the plain version is `mxu_dct_reference`.
+csrc/mxu_dct.cu (two threads per 8x8 group, the DCT matrix as a launch
+parameter passed from host memory); the plain version is
+`mxu_dct_reference`.
 
 DMMT_P1_PREC selects the JAX package's matmul precision of the mxu and
 fused1 routes (`check_p1_precision`, called by the phase-1 router).
@@ -25,13 +27,17 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..kernels import build
-from ..utils.device import device_constant
 from .dct import dct_matrix, matmul_dct_pass
 from .pallas_dct import check_plane
 from .quantize import round_half_away_from_zero
+
+
+# the kernel's DCT matrix, in host memory: copied into each launch's parameters
+_DCT_MATRIX = dct_matrix()
 
 
 def check_p1_precision() -> None:
@@ -56,6 +62,20 @@ def mxu_dct_reference(plane: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor
     return round_half_away_from_zero(t / q[None, :, None, :]).to(torch.int16).reshape(h, w)
 
 
+def division_check(device: torch.device, lo: float = 0.0, hi: float = float("inf")) -> tuple[int, int]:
+    """The kernel's division by an 8-bit table entry (x * (1 / q) with two
+    fma corrections, then its rounding) against __fdiv_rn and dct8.cuh's
+    rounding, on the card, for every float32 x with lo <= |x| < hi and
+    every q in 1..255: (quotients that differ, coefficients that differ)."""
+    lo_bits, hi_bits = (int(np.array(v, np.float32).view(np.uint32)) for v in (lo, hi))
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    err = build.load().dmmt_plane_dct_mm_div_check(
+        lo_bits, hi_bits, counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, "dmmt_plane_dct_mm_div_check")
+    quotients, coefficients = counts.tolist()
+    return quotients, coefficients
+
+
 def plane_dct_quant_mxu(plane: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     """float32 [H, W] plane (H, W multiples of 8) + raster [64] table ->
     int16 [H, W] quantized coefficient plane."""
@@ -65,11 +85,13 @@ def plane_dct_quant_mxu(plane: torch.Tensor, qtable: torch.Tensor) -> torch.Tens
     plane = plane.contiguous()
     dev = plane.device
     out = torch.empty(plane.shape, dtype=torch.int16, device=dev)
-    c = device_constant(dct_matrix(), dev)
-    q = qtable.to(device=dev, dtype=torch.float32).contiguous()
+    # the kernel reads uint8 tables (the encoder's) as they are
+    q = qtable.to(device=dev, dtype=torch.uint8 if qtable.dtype == torch.uint8 else torch.float32)
+    q = q.contiguous()
     err = build.load().dmmt_plane_dct_mm(
-        plane.data_ptr(), int(plane.shape[0]), int(plane.shape[1]), c.data_ptr(), q.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        plane.data_ptr(), int(plane.shape[0]), int(plane.shape[1]), _DCT_MATRIX.ctypes.data,
+        q.data_ptr(), int(q.dtype == torch.uint8), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "dmmt_plane_dct_mm")
     build.LAUNCHES["plane_dct_mm"] += 1

@@ -2,7 +2,8 @@
 points, on one card, in one process.
 
     python -m dmmt_jpeg_encoder_tpu_torch.tools.kernel_ab OTHER_CSRC [--rounds N]
-        [--kinds dct,lookup,phase1,phase1_mm,block_hist,scan_pack,scan_pack_slab]
+        [--kinds dct,lookup,phase1,phase1_mm,block_hist,scan_pack,scan_pack_slab,
+                 plane_dct_mm,pack_emissions]
         [--split] [--split-this]
 
 OTHER_CSRC is a csrc/ directory, for example the parent commit's unpacked
@@ -27,7 +28,14 @@ captured from encodes of the fixtures of tests/torch_port_fixtures.py:
   slab of the one-pack encode (DMMT_SLAB_ONEPACK=1), alone and with a
   [B, N] mask that keeps image i's first (i + 1) / (B + 1) of its MCUs
   (scan_pack.cu). A scan-pack call is timed with the zero fill of its word
-  buffer, as the wrapper runs it.
+  buffer, as the wrapper runs it;
+- plane_dct_mm: the frame's two matmul plane-DCT calls under DMMT_P1=mxu,
+  in the route's order: Cb and Cr stacked [2160, 1920], then luma
+  [2160, 3840] (mxu_dct.cu);
+- pack_emissions: the staged pack's call on the frame (DMMT_NO_FUSED_PACK=1,
+  one_dispatch="off") and the 16 x 1080p fused chunk's call with its
+  word-aligned per-image `boff` (emission_pack.cu), each timed with the
+  zero fill of its word buffer, as the wrapper runs it.
 
 Both builds are held against the plain versions on every input, exactly.
 A scan-pack source is called through the C signature it declares: the
@@ -41,7 +49,11 @@ calls, and the two zero fills of the histograms in each call, as that
 wrapper ran them) or the two-segment one (the state buffer kept between
 calls, no fill). A fused matmul phase-1 build takes its color constants
 and DCT matrix from device memory or, where its source declares c_host,
-from host memory (copied into the launch's parameters). Rounds run in
+from host memory (copied into the launch's parameters); so does a matmul
+plane-DCT build for its DCT matrix. An emission-pack build that declares
+block_bits is given them (int32) and writes the total bit count itself;
+for one that does not, the total is computed as its wrapper did, outside
+the timed calls. Rounds run in
 the order other, this, this, other; every time is
 tools/timing.device_ms of one call list, beside the library call that
 computes the same function where there is one (torch.matmul by M,
@@ -58,9 +70,16 @@ after the zero fill of its look-back state; through a small shim that
 includes its scan_pack.cu), the zero fills alone, and OTHER_CSRC's
 phase-1 kernels; on the block-histogram inputs, the luma and the chroma
 launch alone, the two zero fills of a one-segment call, and the
-torch.cat of Cb and Cr that a one-segment chroma call needs; with
---split-this the same for this checkout's; one JSON line each. Needs a
-card and nvcc.
+torch.cat of Cb and Cr that a one-segment chroma call needs; on the
+matmul plane-DCT inputs, each launch alone and, for a build with the DCT
+matrix in device memory (the earlier 8 x 128 shared-memory tiles), its
+loads alone and its loads with the column pass (through a shim that
+includes its dct8.cuh and repeats its kernel's stages, the rest of the
+work kept behind a store that a runtime zero disables); on the
+emission-pack inputs, the wrapper's torch.zeros of the word buffer, the
+kernel alone (on a buffer zeroed once) and the zero fill with the kernel;
+with --split-this the same for this checkout's; one JSON line each. Needs
+a card and nvcc.
 """
 
 from __future__ import annotations
@@ -86,15 +105,24 @@ from ..kernels import build
 from .timing import device_ms
 
 REPO = Path(__file__).resolve().parents[2]
-KINDS = ("dct", "lookup", "phase1", "phase1_mm", "block_hist", "scan_pack", "scan_pack_slab")
+KINDS = ("dct", "lookup", "phase1", "phase1_mm", "block_hist", "scan_pack", "scan_pack_slab",
+         "plane_dct_mm", "pack_emissions")
 SOURCES = {"dct": "block_dct.cu", "lookup": "table_lookup.cu", "phase1": "phase1.cu",
            "phase1_mm": "fused_phase1.cu", "block_hist": "block_hist.cu",
-           "scan_pack": "scan_pack.cu", "scan_pack_slab": "scan_pack.cu"}
+           "scan_pack": "scan_pack.cu", "scan_pack_slab": "scan_pack.cu",
+           "plane_dct_mm": "mxu_dct.cu", "pack_emissions": "emission_pack.cu"}
 ENTRY_POINTS = {"dct": "dmmt_block_dct_zz", "lookup": "dmmt_table_lookup_grouped",
                 "phase1": "dmmt_phase1", "phase1_mm": "dmmt_phase1_mm",
                 "block_hist": "dmmt_block_hist", "scan_pack": "dmmt_scan_pack",
-                "scan_pack_slab": "dmmt_scan_pack_slab"}
+                "scan_pack_slab": "dmmt_scan_pack_slab", "plane_dct_mm": "dmmt_plane_dct_mm",
+                "pack_emissions": "dmmt_pack_emissions"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the matmul plane DCT's C signature with its DCT matrix and a float32 q in
+# device memory (plane, height, width, c, q, out)
+DEVICE_MATRIX_MM_SIGNATURE = (_P, _I, _I, _P, _P, _P, _P)
+# the emission pack's C signature without block_bits and total_bits (values,
+# lens, offs, boff, n_blocks, words, n_words)
+NO_END_PACK_SIGNATURE = (_P, _P, _P, _P, _LL, _P, _LL, _P)
 # the one-segment block histogram's C signature (blocks, n_blocks, n_valid,
 # zeroed dc and ac)
 ONE_SEGMENT_HIST_SIGNATURE = (_P, _LL, _LL, _P, _P, _P)
@@ -133,6 +161,59 @@ extern "C" int split_emit(const short* scan, int n_images, long long n, int stri
     return cudaGetLastError();
 }
 """
+# A shim around a matmul plane-DCT build whose kernel stages 8 x 128 tiles
+# in shared memory (the earlier design): the same grid, loads and column
+# pass, each stage alone; the rest is kept behind a store that sink = 0
+# disables at run time.
+MM_SPLIT_SHIM = r"""
+#include "dct8.cuh"
+using namespace dmmt;
+namespace {
+constexpr int TILE_W = 128, LD = TILE_W + 1, THREADS = 128;
+template <bool COLUMNS>
+__global__ void __launch_bounds__(THREADS) stage_kernel(
+    const float* __restrict__ plane, int width, int tiles_x, const float* __restrict__ c,
+    const float* __restrict__ q, short* __restrict__ out, int sink) {
+    __shared__ float s_c[64];
+    __shared__ float s_q[64];
+    __shared__ float s[8 * LD];
+    const int tid = threadIdx.x;
+    for (int i = tid; i < 64; i += THREADS) {
+        s_c[i] = c[i];
+        s_q[i] = q[i];
+    }
+    const int row0 = (blockIdx.x / tiles_x) * 8, col0 = (blockIdx.x % tiles_x) * TILE_W;
+    const int valid = min(TILE_W, width - col0);
+    for (int i = tid; i < 8 * TILE_W; i += THREADS) {
+        const int r = i / TILE_W, col = i % TILE_W;
+        s[r * LD + col] = col < valid ? plane[static_cast<size_t>(row0 + r) * width + col0 + col] : 0.0f;
+    }
+    __syncthreads();
+    if (COLUMNS) {
+        for (int i = tid; i < TILE_W; i += THREADS) {
+            float* col = s + i;
+            float x[8];
+            for (int y = 0; y < 8; ++y) x[y] = col[y * LD];
+            for (int v = 0; v < 8; ++v) col[v * LD] = contract8(x, s_c + v * 8);
+        }
+        __syncthreads();
+    }
+    if (sink)
+        out[static_cast<size_t>(blockIdx.x) * THREADS + tid] = static_cast<short>(s[tid] + s_q[tid % 64]);
+}
+}  // namespace
+extern "C" int split_mm(const float* plane, int height, int width, const float* c, const float* q,
+                        short* out, int columns, int sink, void* stream) {
+    const int tiles_x = (width + TILE_W - 1) / TILE_W;
+    const dim3 grid(tiles_x * (height / 8));
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (columns)
+        stage_kernel<true><<<grid, THREADS, 0, s>>>(plane, width, tiles_x, c, q, out, sink);
+    else
+        stage_kernel<false><<<grid, THREADS, 0, s>>>(plane, width, tiles_x, c, q, out, sink);
+    return cudaGetLastError();
+}
+"""
 SPLIT_SIGNATURES = {
     "split_bits": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P),
     "split_scan": (_P, _I, _LL, _P, _P, _P),
@@ -148,16 +229,20 @@ def three_launch(csrc: Path) -> bool:
 def convention(csrc: Path, kind: str) -> int:
     """How to call csrc's kernel of `kind`. Scan pack: 0 for the
     three-launch signature, else the blocks per tile of the one-launch one.
-    Block histogram: 0 for one segment, 1 for two. Fused matmul phase 1: 0
-    for constants in device memory, 1 for host memory. Else 0."""
+    Block histogram: 0 for one segment, 1 for two. Fused matmul phase 1
+    and matmul plane DCT: 0 for constants in device memory, 1 for host
+    memory. Emission pack: 0 without block_bits, 1 with (the kernel
+    writes the total bit count). Else 0."""
     if kind.startswith("scan_pack"):
         if three_launch(csrc):
             return 0
         return int(re.search(r"constexpr int TILE = (\d+);", (csrc / "scan_pack.cu").read_text())[1])
     if kind == "block_hist":
         return int("long long n_blocks, long long n_valid" not in (csrc / "block_hist.cu").read_text())
-    if kind == "phase1_mm":
-        return int("c_host" in (csrc / "fused_phase1.cu").read_text())
+    if kind in ("phase1_mm", "plane_dct_mm"):
+        return int("c_host" in (csrc / SOURCES[kind]).read_text())
+    if kind == "pack_emissions":
+        return int("const int* block_bits" in (csrc / "emission_pack.cu").read_text())
     return 0
 
 
@@ -199,7 +284,21 @@ def build_other(csrc: Path, kinds: list[str]) -> ctypes.CDLL:
         sigs.update({k: v for k, v in THREE_LAUNCH_SIGNATURES.items() if k in sigs})
     if "block_hist" in kinds and not convention(csrc, "block_hist"):
         sigs["dmmt_block_hist"] = ONE_SEGMENT_HIST_SIGNATURE
+    if "pack_emissions" in kinds and not convention(csrc, "pack_emissions"):
+        sigs["dmmt_pack_emissions"] = NO_END_PACK_SIGNATURE
+    if "plane_dct_mm" in kinds and not convention(csrc, "plane_dct_mm"):
+        sigs["dmmt_plane_dct_mm"] = DEVICE_MATRIX_MM_SIGNATURE
     return _bind(lib, sigs)
+
+
+def build_mm_split(csrc: Path) -> ctypes.CDLL:
+    """The stages of csrc's shared-memory-tile matmul plane DCT, behind
+    split_mm (MM_SPLIT_SHIM)."""
+    shim = build.BUILD_DIR / "split_shim" / "mxu_dct_split.cu"
+    shim.parent.mkdir(parents=True, exist_ok=True)
+    shim.write_text(MM_SPLIT_SHIM)
+    out = _compile([shim], "kernel_ab_mm_split", ("-I", str(csrc)), (csrc / "dct8.cuh",))
+    return _bind(ctypes.CDLL(str(out)), {"split_mm": (_P, _I, _I, _P, _P, _P, _I, _I, _P)})
 
 
 def build_split(csrc: Path) -> ctypes.CDLL:
@@ -242,8 +341,8 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     the encodes pass them (with the encode's output for dct and lookup)."""
     import dmmt_jpeg_encoder_tpu_torch as port
     from .. import onedispatch
-    from ..bitstream import device_pack
-    from ..ops import block_hist, fused, fused_arai, fused_phase1
+    from ..bitstream import device_pack, emission_pack
+    from ..ops import block_hist, fused, fused_arai, fused_phase1, mxu_dct
     from torch_port_fixtures import BATCH_FIXTURES, batch_frames, fixture_pixels
 
     calls: list = []
@@ -275,6 +374,19 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
             segs = coeffs_zz if isinstance(coeffs_zz, (tuple, list)) else (coeffs_zz,)
             hist_calls.append(tuple(_contig(x) for x in segs))
             return real(coeffs_zz, n_valid)
+        return wrapped
+
+    def grab_mm(real):
+        def wrapped(plane, qtable):
+            calls.append((_contig(plane), qtable.to(plane.device).contiguous()))
+            return real(plane, qtable)
+        return wrapped
+
+    def grab_emissions(real):
+        def wrapped(values, lens, offs, block_bits, n_words, boff=None):
+            calls.append((*(_contig(x.to(torch.int32)) for x in (values, lens, offs)),
+                          _contig(block_bits), n_words, None if boff is None else _contig(boff)))
+            return real(values, lens, offs, block_bits, n_words, boff)
         return wrapped
 
     def grab_pack(real):
@@ -346,6 +458,27 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         inputs[f"scan_pack_slab batch_1080p_p420 x {b}"] = ("scan_pack_slab", [(*slab, None)])
         inputs[f"scan_pack_slab batch_1080p_p420 x {b} valid prefixes"] = (
             "scan_pack_slab", [(*slab, _prefix_mask(n, stride, b, dev))])
+    if "plane_dct_mm" in kinds:
+        os.environ["DMMT_P1"] = "mxu"
+        try:
+            with _patched(mxu_dct, "plane_dct_quant_mxu", grab_mm):
+                port.encode_array(px, 255, cfg, device=dev)
+        finally:
+            os.environ.pop("DMMT_P1")
+        inputs["plane_dct_mm 4k_p420 DMMT_P1=mxu (Cb, Cr stacked; luma)"] = ("plane_dct_mm", calls[:])
+        calls.clear()
+    if "pack_emissions" in kinds:
+        with _patched(emission_pack, "pack_emission_words", grab_emissions):
+            os.environ["DMMT_NO_FUSED_PACK"] = "1"
+            try:
+                port.encode_array(px, 255, dataclasses.replace(cfg, one_dispatch="off"), device=dev)
+            finally:
+                os.environ.pop("DMMT_NO_FUSED_PACK")
+            inputs["pack_emissions 4k_p420 staged pack"] = ("pack_emissions", calls[:])
+            calls.clear()
+            port.encode_batch(frames, fb["maxval"], cfg, fused_batch=fb["n"], device=dev)
+            inputs[f"pack_emissions batch_1080p_p420 fused_batch={fb['n']}"] = ("pack_emissions", calls[:])
+            calls.clear()
     torch.cuda.synchronize()
     return inputs
 
@@ -445,6 +578,42 @@ def _pack_buffers(call, conv: int, kind: str) -> tuple:
     return words, total, scratch, words
 
 
+def _mm_args(call, conv: int) -> tuple:
+    """(C arguments, output) of one matmul plane-DCT call in the build's
+    convention: conv 1, the DCT matrix from host memory and the table as
+    the route passes it (uint8, flagged); conv 0, both in device memory,
+    the table as float32 (converted here, outside the timed calls)."""
+    from ..ops.dct import dct_matrix
+
+    plane, q = call
+    h, w = int(plane.shape[0]), int(plane.shape[1])
+    out = torch.empty(plane.shape, dtype=torch.int16, device=plane.device)
+    if conv:
+        if q.dtype != torch.uint8:
+            q = q.to(torch.float32).contiguous()
+        return (plane, h, w, dct_matrix(), q, int(q.dtype == torch.uint8), out), out
+    c = torch.from_numpy(dct_matrix()).to(plane.device)
+    return (plane, h, w, c, q.to(torch.float32).contiguous(), out), out
+
+
+def _emission_args(call, conv: int) -> tuple:
+    """(C arguments, the word buffer the wrapper zero-fills, outputs) of one
+    emission-pack call in the build's convention (conv 1: block_bits in,
+    the total bit count out)."""
+    from ..bitstream.device_pack import block_offsets
+
+    values, lens, offs, block_bits, n_words, boff = call
+    boff, total = block_offsets(block_bits, boff)
+    boff = boff.contiguous()
+    n = int(values.shape[0])
+    words = torch.zeros(n_words, dtype=torch.int32, device=values.device)
+    if conv:
+        total = torch.empty((), dtype=torch.int64, device=values.device)
+        bits = block_bits.to(torch.int32).contiguous()
+        return (values, lens, offs, boff, bits, n, words, n_words, total), words, (words, total)
+    return (values, lens, offs, boff, n, words, n_words), words, (words, total)
+
+
 def runner(lib, kind: str, args: list, conv: int = 0):
     """(the call list on `lib`, one closure per call, their outputs): one C
     call per captured call; a scan-pack call zero-fills its words (and a
@@ -465,6 +634,14 @@ def runner(lib, kind: str, args: list, conv: int = 0):
             cargs, fills, o = _hist_buffers(call, conv)
             prepared.append((cargs, fills))
             outs.append(o)
+        elif kind == "plane_dct_mm":
+            cargs, o = _mm_args(call, conv)
+            prepared.append((cargs, ()))
+            outs.append(o)
+        elif kind == "pack_emissions":
+            cargs, fill, o = _emission_args(call, conv)
+            prepared.append((cargs, (fill,)))
+            outs.append(o)
         else:
             bufs = _pack_buffers(call, conv, kind)
             prepared.append(bufs)
@@ -482,11 +659,11 @@ def runner(lib, kind: str, args: list, conv: int = 0):
         elif kind in ("phase1", "phase1_mm"):
             rgb, cargs = prepared[k]
             err = getattr(lib, entry)(rgb.data_ptr(), *(_arg(x) for x in cargs), stream_)
-        elif kind == "block_hist":
+        elif kind in ("block_hist", "plane_dct_mm", "pack_emissions"):
             cargs, fills = prepared[k]
             for t in fills:
                 t.zero_()
-            err = lib.dmmt_block_hist(*(_arg(x) for x in cargs), stream_)
+            err = getattr(lib, entry)(*(_arg(x) for x in cargs), stream_)
         else:
             scan, stride, lpm, codes, lens, n_words, valid = args[k]
             words, total, scratch, fill = prepared[k]
@@ -505,11 +682,12 @@ def runner(lib, kind: str, args: list, conv: int = 0):
 
 
 def plain(kind: str, args: list) -> list:
-    from ..bitstream.device_pack import pack_scan_plain, pack_scan_slab_plain
+    from ..bitstream.device_pack import pack_scan_plain, pack_scan_slab_plain, pack_to_words
     from ..ops.block_hist import block_histograms_plain
     from ..ops.fused import fused_reference
     from ..ops.fused_phase1 import fused_phase1_reference
     from ..ops.lookup import table_lookup_grouped_plain
+    from ..ops.mxu_dct import mxu_dct_reference
     from ..pipeline import phase1_zigzag_blocks
 
     if kind == "dct":
@@ -522,20 +700,31 @@ def plain(kind: str, args: list) -> list:
         return [list(fused_phase1_reference(*call)) for call in args]
     if kind == "block_hist":
         return [list(block_histograms_plain(torch.cat(call))) for call in args]
+    if kind == "plane_dct_mm":
+        return [mxu_dct_reference(*call) for call in args]
+    if kind == "pack_emissions":
+        return [list(pack_to_words(*call)) for call in args]
     fn = pack_scan_slab_plain if kind == "scan_pack_slab" else pack_scan_plain
     return [list(fn(*call[:6], valid=call[6])) for call in args]
 
 
 def library(kind: str, args: list):
     """One PyTorch call per captured call computing the same function
-    (torch.matmul by M without the rounding, TF32 off; torch.gather), or
-    None where no PyTorch call does."""
+    (torch.matmul by M without the rounding, TF32 off; torch.gather;
+    torch.einsum C X C^T without the division and rounding), or None where
+    no PyTorch call does."""
     if kind == "dct":
         flat = [(a.reshape(-1, 64), b) for a, b, _ in args]
         return lambda: [torch.matmul(a, b) for a, b in flat]
     if kind == "lookup":
         gathers = [(b, a.to(torch.int64)) for a, b, _ in args]
         return lambda: [torch.gather(t, 1, s) for t, s in gathers]
+    if kind == "plane_dct_mm":
+        from ..ops.dct import dct_matrix
+
+        c = torch.from_numpy(dct_matrix()).to(args[0][0].device)
+        groups = [p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8) for p, _ in args]
+        return lambda: [torch.einsum("vy,aybx,ux->avbu", c, x, c) for x in groups]
     return None
 
 
@@ -605,6 +794,12 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
         if kind == "block_hist":
             out[name] = hist_split(lib_all, calls, conv)
             continue
+        if kind == "plane_dct_mm":
+            out[name] = mm_split(csrc, lib_all, calls, conv)
+            continue
+        if kind == "pack_emissions":
+            out[name] = emission_split(lib_all, calls, conv, csrc == build.CSRC)
+            continue
         if not kind.startswith("scan_pack"):
             continue
         lib = build_split(csrc) if not conv else None
@@ -645,6 +840,62 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
         t["n_words"] = int(words.numel())
         out[name] = t
     return out
+
+
+def mm_split(csrc: Path, lib, calls: list, conv: int) -> dict:
+    """ms of each matmul plane-DCT launch alone (labelled by its plane's
+    shape) and of the pair; for a shared-memory-tile build (conv 0), also
+    of its loads alone and its loads with the column pass, per launch and
+    for the pair."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    run, singles, _ = runner(lib, "plane_dct_mm", calls, conv)
+    labels = [str(list(call[0].shape)) for call in calls]
+    t = {}
+    if not conv:
+        shim = build_mm_split(csrc)
+        staged = [_mm_args(call, conv)[0] for call in calls]
+
+        def stage(cols: int, which: list):
+            def fn():
+                for plane, h, w, c, q, o in which:
+                    build.check(shim.split_mm(plane.data_ptr(), h, w, c.data_ptr(), q.data_ptr(),
+                                              o.data_ptr(), cols, 0, stream()), "split_mm")
+            return fn
+
+        for cols, label in ((0, "loads"), (1, "loads + column pass")):
+            for one, part in zip(staged, labels):
+                t[f"{part}: {label}"] = device_ms(stage(cols, [one]))
+            t[f"pair: {label}"] = device_ms(stage(cols, staged))
+    for fn, part in zip(singles, labels):
+        t[f"{part}: whole kernel"] = device_ms(fn)
+    t["pair: whole kernels"] = device_ms(run)
+    return t
+
+
+def emission_split(lib, calls: list, conv: int, this: bool) -> dict:
+    """ms of the wrapper's torch.zeros of the word buffer, of the kernel
+    alone (on a buffer zeroed once: every launch ORs the same words), of
+    the zero fill with the kernel, and, for this checkout's build, of the
+    wrapper pack_emission_words as the paths call it."""
+    from ..bitstream.emission_pack import pack_emission_words
+
+    (call,) = calls
+    cargs, words, _ = _emission_args(call, conv)
+    entry = lib.dmmt_pack_emissions
+
+    def kernel():
+        build.check(entry(*(_arg(x) for x in cargs), torch.cuda.current_stream().cuda_stream),
+                    "dmmt_pack_emissions")
+
+    t = {"torch.zeros(n_words)": device_ms(
+            lambda: torch.zeros(words.shape, dtype=words.dtype, device=words.device)),
+         "kernel alone": device_ms(kernel),
+         "zero fill + kernel": device_ms(runner(lib, "pack_emissions", calls, conv)[0])}
+    if this:
+        t["pack_emission_words (the wrapper)"] = device_ms(lambda: pack_emission_words(*call))
+    t["n_blocks"], t["n_words"] = int(call[0].shape[0]), int(call[4])
+    t["live slots"] = int((call[1] > 0).sum())
+    return t
 
 
 def hist_split(lib, calls: list, conv: int) -> dict:

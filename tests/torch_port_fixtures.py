@@ -214,6 +214,141 @@ BLOCK_HIST_EDGE_CASES = tuple(
 ) + (("random", (129, 127), 50), ("random", (129, 127), 200), ("extreme", (389, 129), 300))
 
 
+# Edge shapes of the matmul plane DCT (csrc/mxu_dct.cu, two threads per 8x8
+# group), shared the same way: widths of 1, 15, 16, 17 and 241 groups
+# (around the kernel's 64-group CTAs when rows are few), heights of one and
+# three group rows, and Cb and Cr of an 80 x 144 P420 frame stacked, as the
+# route stacks them (with a table past 8 bits).
+PLANE_MM_EDGE_SHAPES = tuple(
+    (h, w) for h in (8, 24) for w in (8, 120, 128, 136, 1928)
+) + ((2 * 40, 72),)
+
+
+def plane_mm_edge_inputs(h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """float32 [h, w] level-shifted plane and a raster quantization table
+    [64] (uint16). Group g (raster order) is, by g % 5: random sixteenths
+    in [-128, 128); flat -128 and flat 127 (saturated); a flat odd integer
+    a, whose DC lands on a / 2 = x.5 after / q[0] = 16 up to the
+    contractions' rounding; a checkerboard of -128 and 127 (the largest
+    AC). q also holds 1 (a division that is exact) and 255; the stacked
+    chroma shape's also 300 and 1000, past the 8-bit tables the encoder
+    makes (the kernel's arm for any other table)."""
+    rng = np.random.default_rng(h * 10007 + w)
+    groups = rng.integers(-128 * 16, 128 * 16, (h // 8, w // 8, 8, 8)) / 16
+    kind = np.arange((h // 8) * (w // 8)).reshape(h // 8, w // 8) % 5
+    odd = rng.integers(-64, 64, groups.shape[:2]) * 2 + 1
+    checker = np.where((np.arange(8)[:, None] + np.arange(8)) % 2, 127.0, -128.0)
+    groups[kind == 1] = -128.0
+    groups[kind == 2] = 127.0
+    groups[kind == 3] = odd[kind == 3][:, None, None]
+    groups[kind == 4] = checker
+    plane = groups.transpose(0, 2, 1, 3).reshape(h, w).astype(np.float32)
+    q = rng.integers(1, 256, 64).astype(np.uint16)
+    q[0], q[1], q[8] = 16, 1, 255
+    if (h, w) == PLANE_MM_EDGE_SHAPES[-1]:
+        q[2], q[3] = 300, 1000
+    return plane, q
+
+
+# Edge cases of the emission pack (csrc/emission_pack.cu), shared the same
+# way. EMISSION_PACK_TILE and EMISSION_PACK_TILE_WORDS are TILE and
+# TILE_WORDS there: the blocks of a CTA, and the shared word window past
+# which a tile takes the over-full arm. case -> (content, N, images,
+# n_words below the stream's need):
+# - "photo": ~8 live slots, ~55 bits a block, as a photograph's scan;
+# - "dense": ~30 live slots a block;
+# - "worst": every slot live with 30 bits (2040-bit blocks), every tile
+#   over-full; "mixed": a first tile of worst-case blocks, photo after it;
+# - "masked": photo with every third block and the whole second tile cut
+#   to length 0, as mask_emissions cuts the blocks that `valid` drops;
+# - images > 1: the blocks split into images, each image's stream at a
+#   word-aligned base (the fused batch's boff);
+# - short: a word buffer of half the stream's words, so pieces are dropped.
+EMISSION_PACK_TILE = 32
+EMISSION_PACK_TILE_WORDS = 1024
+EMISSION_PACK_EDGE_CASES = tuple(
+    ("photo", n, 1, False) for n in (1, EMISSION_PACK_TILE - 1, EMISSION_PACK_TILE,
+                                     EMISSION_PACK_TILE + 1, 389)
+) + (
+    ("dense", 389, 1, False), ("worst", 130, 1, False), ("mixed", 200, 1, False),
+    ("masked", 389, 1, False), ("photo", 389, 2, False), ("photo", 390, 3, False),
+    ("dense", 300, 3, False), ("photo", 389, 1, True), ("mixed", 200, 2, True),
+)
+
+
+def emission_pack_edge_inputs(case: tuple) -> tuple[np.ndarray, ...]:
+    """One EMISSION_PACK_EDGE_CASES case as block_emissions lays it out:
+    int32 values, lens, offs [N, 68] (slot 0 the DC, 1-63 the ACs, 64-66
+    ZRLs, 67 the EOB; offs are block-relative, in stream order DC, then the
+    ACs with each ZRL before its AC, then the EOB), int32 block_bits [N],
+    n_words, and int64 boff [N] (None for one image: the exclusive scan of
+    block_bits)."""
+    content, n, images, short = case
+    rng = np.random.default_rng(EMISSION_PACK_EDGE_CASES.index(case) + 11000)
+    live = np.zeros((n, 68), bool)
+    lens = np.zeros((n, 68), np.int64)
+    top = 27 if content == "dense" else 12  # a photograph's codes are short
+    live[:, 0] = True
+    lens[:, 0] = rng.integers(2, top + 1, n)
+    if content in ("worst", "mixed"):
+        worst = np.arange(n) < (n if content == "worst" else EMISSION_PACK_TILE)
+        live[worst] = True
+        lens[worst] = 30
+    else:
+        worst = np.zeros(n, bool)
+    p_ac = 0.45 if content == "dense" else 0.09
+    ac = (rng.random((n, 63)) < p_ac * np.linspace(1.6, 0.4, 63)) & ~worst[:, None]
+    live[:, 1:64] |= ac
+    lens[:, 1:64] = np.where(ac, rng.integers(2, top, (n, 63)), lens[:, 1:64])
+    zrl = (rng.random((n, 3)) < 0.1) & ac[:, 40:43] & ~worst[:, None]
+    live[:, 64:67] |= zrl
+    lens[:, 64:67] = np.where(zrl, rng.integers(10, 12, (n, 3)), lens[:, 64:67])
+    eob = ~live[:, 63] & ~worst
+    live[:, 67] |= eob
+    lens[:, 67] = np.where(eob, rng.integers(2, 5, n), lens[:, 67])
+    if content == "masked":
+        cut = (np.arange(n) % 3 == 1) | (np.arange(n) // EMISSION_PACK_TILE == 1)
+        live[cut] = False
+        lens[cut] = 0
+    lens = np.where(live, lens, 0)
+    # stream order: DC, AC 1..63 with ZRL slot 64 + k before AC 41 + k, EOB
+    order = np.array([0, *range(1, 41), 64, 41, 65, 42, 66, *range(43, 64), 67])
+    offs = np.zeros((n, 68), np.int64)
+    offs[:, order] = np.cumsum(lens[:, order], axis=1) - lens[:, order]
+    values = rng.integers(0, 1 << 30, (n, 68)) & ((1 << lens) - 1)
+    bits = lens.sum(axis=1)
+    boff = None
+    if images > 1:
+        seg = np.arange(n) * images // n
+        starts = np.searchsorted(seg, np.arange(images))
+        in_seg = np.concatenate([np.cumsum(b) - b for b in np.split(bits, starts[1:])])
+        seg_words = [(int(b.sum()) + 31) // 32 for b in np.split(bits, starts[1:])]
+        word_off = np.concatenate([[0], np.cumsum(seg_words)[:-1]])
+        boff = (word_off[seg] * 32 + in_seg).astype(np.int64)
+        need = int(word_off[-1]) + seg_words[-1]
+    else:
+        need = (int(bits.sum()) + 31) // 32
+    n_words = need // 2 if short else need + 2
+    return (values.astype(np.int32), lens.astype(np.int32), offs.astype(np.int32),
+            bits.astype(np.int32), n_words, boff)
+
+
+def emission_pack_tile_arms(block_bits: np.ndarray, boff: np.ndarray | None) -> list[str]:
+    """Which arm each EMISSION_PACK_TILE tile of the kernel takes: "empty"
+    (no bit), "shared" (its words fit the window) or "over-full"."""
+    bits = block_bits.astype(np.int64)
+    boff = np.cumsum(bits) - bits if boff is None else boff
+    end = int(boff[-1] + bits[-1])
+    arms = []
+    for t in range(0, len(bits), EMISSION_PACK_TILE):
+        lo = int(boff[t])
+        hi = int(boff[t + EMISSION_PACK_TILE]) if t + EMISSION_PACK_TILE < len(bits) else end
+        count = ((hi - 1) >> 5) - (lo >> 5) + 1 if hi > lo else 0
+        arms.append("empty" if not count else "shared" if count <= EMISSION_PACK_TILE_WORDS
+                    else "over-full")
+    return arms
+
+
 def block_hist_edge_segments(case: tuple) -> list[np.ndarray]:
     """The int16 [n, 64] blocks of each segment of a BLOCK_HIST_EDGE_CASES
     case (DC already DPCM'd)."""
