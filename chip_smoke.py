@@ -59,7 +59,15 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    (N of 1 and around its 32-block tile,
    2040-bit blocks past its shared word window beside tiles within it,
    masked blocks and a tile of them, two and three images at word-aligned
-   bases, a word buffer that drops the stream's second half);
+   bases, a word buffer that drops the stream's second half), for the
+   weighted histogram (M of 0-5 and odd, G of 1, 3 and 16 with unaligned
+   rows, 1, 16 and 256 bins, symbols out of range, weights 0, 1, larger
+   and negative, a bin past 2^24, rows of many CTAs; also with only the
+   symbols unaligned, its arm for symbols and weights aligned unalike;
+   and twice in turn with the block histograms between, which share its
+   ticket state, on one stream, then on a second) and for the Arai plane
+   DCT (the matmul plane
+   DCT's shapes and inputs, 8-bit tables also as uint8);
 4. end to end, each path driven with the launch counts reset just before
    and read just after: every single-image fixture through
    encode_array(device="cuda"), one-dispatch and two-dispatch
@@ -521,9 +529,11 @@ def main() -> int:
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_arai import fused_arai_phase1
     from dmmt_jpeg_encoder_tpu_torch.ops.fused_phase1 import fused_phase1, fused_phase1_reference
     from dmmt_jpeg_encoder_tpu_torch.ops.geometry import padded_size
+    from dmmt_jpeg_encoder_tpu_torch.ops.histogram import histogram_grouped, histogram_grouped_plain
     from dmmt_jpeg_encoder_tpu_torch.ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
     from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import division_check as mxu_division_check
     from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import mxu_dct_reference, plane_dct_quant_mxu
+    from dmmt_jpeg_encoder_tpu_torch.ops.pallas_dct import plane_dct_quant
     from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
     from dmmt_jpeg_encoder_tpu_torch.pipeline import (
         dc_dpcm,
@@ -531,6 +541,7 @@ def main() -> int:
         run_device_pipeline_batch,
         ycbcr_planes,
     )
+    from dmmt_jpeg_encoder_tpu_torch.pipeline import plane_dct_quant as arai_plain
     from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
     from dmmt_jpeg_encoder_tpu_torch.tools.timing import device_ms
     from dmmt_jpeg_encoder_tpu_torch.utils import capability
@@ -542,8 +553,10 @@ def main() -> int:
         BLOCK_HIST_EDGE_CASES,
         EMISSION_PACK_EDGE_CASES,
         FIXTURES,
+        HISTOGRAM_EDGE_CASES,
         LOOKUP_EDGE_SHAPES,
         PHASE1_EDGE_CASES,
+        PLANE_DCT_EDGE_SHAPES,
         PLANE_MM_EDGE_SHAPES,
         ROUTE_BATCHES,
         ROUTES,
@@ -558,9 +571,11 @@ def main() -> int:
         emission_pack_edge_inputs,
         emission_pack_tile_arms,
         fixture_pixels,
+        histogram_edge_inputs,
         lookup_edge_inputs,
         phase1_edge_pixels,
         plane_mm_edge_inputs,
+        random_blocks,
         scan_pack_edge_blocks,
         scan_pack_edge_mask,
         scan_pack_tables,
@@ -997,6 +1012,50 @@ def main() -> int:
     arm_counts = {arm: sum(arms.count(arm) for arms in emit_arms.values()) for arm in sorted(reached)}
     log(f"edge cases: pack_emissions == plain on {len(EMISSION_PACK_EDGE_CASES)} (content, N, "
         f"images, short) cases (tiles by arm {arm_counts}), also from unaligned views")
+    for case in HISTOGRAM_EDGE_CASES:
+        g, m, n_bins, content = case
+        sym, wts = (torch.from_numpy(x).to(dev) for x in histogram_edge_inputs(case))
+        want = histogram_grouped_plain(sym, wts, n_bins)
+        views = [("", sym, wts)]
+        if m:
+            views += [(" unaligned", unaligned(sym), unaligned(wts)),
+                      (" unaligned symbols only", unaligned(sym), wts)]
+        for label, s_in, w_in in views:
+            check_equal(torch, errs, "histogram", f"edge {case}{label}",
+                        histogram_grouped(s_in, w_in, n_bins), want)
+    # the ticket state, the block histograms' on each stream: calls in turn
+    # on one stream, the block histograms between them, then on another (a
+    # case of many CTAs, each taking a ticket)
+    state_case = (3, 300_001, 16, "in_range")
+    sym, wts = (torch.from_numpy(x).to(dev) for x in histogram_edge_inputs(state_case))
+    want = histogram_grouped_plain(sym, wts, state_case[2])
+    state_blocks = torch.from_numpy(random_blocks(17, 389)).to(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for label, stream in (("one stream", torch.cuda.current_stream(dev)), ("a second stream", side)):
+        with torch.cuda.stream(stream):
+            outs = [histogram_grouped(sym, wts, want.shape[1]), fused_block_histograms(state_blocks),
+                    histogram_grouped(sym, wts, want.shape[1])]
+        stream.synchronize()
+        for k in (0, 2):
+            check_equal(torch, errs, "histogram", f"edge state: call {k} in turn on {label}", outs[k], want)
+        check_equal(torch, errs, "block_hist", f"edge state: between the histograms on {label}", outs[1],
+                    block_histograms_plain(state_blocks))
+    log(f"edge cases: histogram == plain on {len(HISTOGRAM_EDGE_CASES)} (G, M, n_bins, content) "
+        "cases, also from unaligned views (both, and the symbols alone); in turn with the block "
+        "histograms on one stream and on a second")
+    for h, w in PLANE_DCT_EDGE_SHAPES:
+        plane_np, q_np = plane_mm_edge_inputs(h, w)
+        plane, q = torch.from_numpy(plane_np).to(dev), torch.from_numpy(q_np).to(dev)
+        want = arai_plain(plane, q)
+        tables = [("", q)] + ([(" uint8 table", q.to(torch.uint8))] if q_np.max() <= 255 else [])
+        for label, xin in (("", plane), (" unaligned", unaligned(plane))):
+            for qlabel, qin in tables:
+                check_equal(torch, errs, "plane_dct", f"edge {h}x{w}{label}{qlabel}",
+                            plane_dct_quant(xin, qin), want)
+    log(f"edge shapes: plane_dct == plain on {len(PLANE_DCT_EDGE_SHAPES)} (H, W) planes "
+        "(saturated groups, DCs on x.5 after / q, 8-bit tables also as uint8, a table past 8 "
+        "bits), also from unaligned views")
 
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}

@@ -14,6 +14,9 @@
 //   fused1, the SIMPLE and SEPARATED variants; ops/dct.contract8): term n
 //   goes to accumulator n mod 4, the first term of each a plain product,
 //   combined as (a0 + a1) + (a2 + a3).
+// - round_half_away / round_away, div_by_int: the quantizer's rounding and
+//   the plane DCTs' division by an 8-bit table entry (plane_dct.cu and
+//   mxu_dct.cu compile the same source).
 //
 // Device functions cannot be shared between the library's separately
 // compiled sources (no relocatable device code), hence this header.
@@ -95,6 +98,24 @@ __device__ __forceinline__ float contract8(const float (&x)[8], const float* w) 
 __device__ __forceinline__ short round_half_away(float x) {
     const float a = floorf(add(fabsf(x), 0.5f));
     return static_cast<short>(static_cast<int>(x > 0.0f ? a : (x < 0.0f ? -a : 0.0f)));
+}
+
+// sign(y) * floor(|y| + 0.5), then int16: round_half_away for every float,
+// NaN and infinities included
+__device__ __forceinline__ short round_away(float y) {
+    return static_cast<short>(static_cast<int>(copysignf(floorf(add(fabsf(y), 0.5f)), y)));
+}
+
+// x / q for q an integer in 1..255, rq = __fdiv_rn(1, q): the rounded
+// quotient x * rq, corrected twice by its exact residual. Rounded by
+// round_away, it gives __fdiv_rn's coefficient for every finite x
+// (mxu_dct.cu's div_check_kernel); non-finite x give x * rq, which is x / q
+// there.
+__device__ __forceinline__ float div_by_int(float x, float q, float rq) {
+    const float y0 = mul(x, rq);
+    const float y1 = fmadd(fmadd(-q, y0, x), rq, y0);
+    const float y2 = fmadd(fmadd(-q, y1, x), rq, y1);
+    return fabsf(y0) < INFINITY ? y2 : y0;
 }
 
 }  // namespace dmmt

@@ -33,11 +33,12 @@
 //   uint8 as the encoder's tables come, or float32); each CTA reads it once
 //   into shared memory as float32, with its reciprocals 1 / q
 //   (__fdiv_rn). When every q is an integer in 1..255 (every table the
-//   encoder makes), x / q is x * (1 / q) refined by two fma corrections by
-//   the exact residual x - q y, which, rounded, gives __fdiv_rn's
-//   coefficient for every finite x (div_check_kernel below counts the
-//   differences over all finite float32 x and q = 1..255, and chip_smoke.py
-//   requires none; for |x| >= 0.25 the quotients themselves are equal);
+//   encoder makes), x / q is dct8.cuh's div_by_int: x * (1 / q) refined
+//   by two fma corrections by the exact residual x - q y, which, rounded,
+//   gives __fdiv_rn's coefficient for every finite x (div_check_kernel
+//   below counts the differences over all finite float32 x and q = 1..255,
+//   and chip_smoke.py requires none; for |x| >= 0.25 the quotients
+//   themselves are equal);
 //   non-finite x take x * (1 / q), which is x / q there. Any other table
 //   takes __fdiv_rn.
 // - The row pass rounds half away from zero as copysign(floor(|y| + 0.5),
@@ -75,21 +76,6 @@ __device__ __forceinline__ float contract_row(const float (&x)[8], const Matrix&
 #pragma unroll
     for (int n = 0; n < 8; ++n) w[n] = m.c[row * 8 + n];
     return contract8(x, w);
-}
-
-// x / q for q an integer in 1..255, rq = __fdiv_rn(1, q): the rounded
-// quotient x * rq, corrected twice by its exact residual
-__device__ __forceinline__ float div_by_int(float x, float q, float rq) {
-    const float y0 = mul(x, rq);
-    const float y1 = fmadd(fmadd(-q, y0, x), rq, y0);
-    const float y2 = fmadd(fmadd(-q, y1, x), rq, y1);
-    return fabsf(y0) < INFINITY ? y2 : y0;
-}
-
-// sign(y) * floor(|y| + 0.5), then int16: round_half_away (dct8.cuh) for
-// every float, NaN and infinities included
-__device__ __forceinline__ short round_away(float y) {
-    return static_cast<short>(static_cast<int>(copysignf(floorf(add(fabsf(y), 0.5f)), y)));
 }
 
 __device__ __forceinline__ unsigned pack2(short lo, short hi) {
@@ -207,10 +193,11 @@ __global__ void __launch_bounds__(THREADS) plane_dct_mm_kernel(
         row_pass<false>(rows, h, m, s_q, s_rq, dst, width);
 }
 
-// The check behind div_by_int and round_away: for every float32 bit pattern
-// in [lo_bits, hi_bits), with both signs, and every q in 1..255, counts[0]
-// the quotients that differ from __fdiv_rn(x, q) and counts[1] the
-// coefficients that differ from round_half_away(__fdiv_rn(x, q)).
+// The check behind div_by_int and round_away (dct8.cuh, shared with
+// plane_dct.cu): for every float32 bit pattern in [lo_bits, hi_bits), with
+// both signs, and every q in 1..255, counts[0] the quotients that differ
+// from __fdiv_rn(x, q) and counts[1] the coefficients that differ from
+// round_half_away(__fdiv_rn(x, q)).
 __global__ void __launch_bounds__(256) div_check_kernel(unsigned lo_bits, unsigned hi_bits,
                                                         unsigned long long* counts) {
     unsigned long long quotients = 0, coefficients = 0;

@@ -54,10 +54,10 @@ _SIGNATURES = {
     "dmmt_block_hist": (_P, _LL, _P, _LL, _P, _P, _P),
     "dmmt_scan_pack": (_P, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P),
     "dmmt_scan_pack_slab": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P),
-    "dmmt_histogram_grouped": (_P, _P, _I, _LL, _I, _P, _P),
+    "dmmt_histogram_grouped": (_P, _P, _I, _LL, _I, _P, _P, _P),
     "dmmt_table_lookup_grouped": (_P, _P, _I, _LL, _I, _P, _P),
     "dmmt_pack_emissions": (_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P),
-    "dmmt_plane_dct": (_P, _I, _I, _P, _P, _P, _P),
+    "dmmt_plane_dct": (_P, _I, _I, _P, _P, _I, _P, _P),
     "dmmt_plane_dct_mm": (_P, _I, _I, _P, _P, _I, _P, _P),
     "dmmt_plane_dct_mm_div_check": (ctypes.c_uint, ctypes.c_uint, _P, _P),
     "dmmt_phase1_mm": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P),

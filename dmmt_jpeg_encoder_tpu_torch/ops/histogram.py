@@ -8,7 +8,12 @@ counts, so DMMT_HIST=matmul runs this kernel too.
 
 Weights are integers (the JAX fallback casts them to int32; every caller
 passes 0/1), counts are exact int32, and a symbol outside [0, n_bins)
-counts nowhere, as the TPU kernel's per-bin compare drops it.
+counts nowhere, as the TPU kernel's per-bin compare drops it. A call needs
+no zero fill: the kernel's first CTA zeroes the output while the others
+count, and says so through the small per-stream state of the
+block-histogram kernel (ops/block_hist.py), whose protocol it shares: each
+call leaves the state ready for the next on its stream, whichever of the
+two kernels that is.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
+from .block_hist import _state
 
 
 def histogram_grouped_plain(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -48,11 +54,11 @@ def histogram_grouped(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int)
     g, m = (int(x) for x in symbols.shape)
     sym = symbols.to(torch.int32).contiguous()
     w = weights.to(device=sym.device, dtype=torch.int32).contiguous()
-    out = torch.zeros((g, n_bins), dtype=torch.int32, device=sym.device)
-    lib = build.load()
-    err = lib.dmmt_histogram_grouped(
-        sym.data_ptr(), w.data_ptr(), g, m, n_bins, out.data_ptr(),
-        torch.cuda.current_stream(sym.device).cuda_stream,
+    stream = torch.cuda.current_stream(sym.device)
+    out = torch.empty((g, n_bins), dtype=torch.int32, device=sym.device)
+    err = build.load().dmmt_histogram_grouped(
+        sym.data_ptr(), w.data_ptr(), g, m, n_bins, _state(sym.device, stream).data_ptr(),
+        out.data_ptr(), stream.cuda_stream,
     )
     build.check(err, "dmmt_histogram_grouped")
     build.LAUNCHES["histogram"] += 1

@@ -3,7 +3,7 @@ points, on one card, in one process.
 
     python -m dmmt_jpeg_encoder_tpu_torch.tools.kernel_ab OTHER_CSRC [--rounds N]
         [--kinds dct,lookup,phase1,phase1_mm,block_hist,scan_pack,scan_pack_slab,
-                 plane_dct_mm,pack_emissions]
+                 plane_dct_mm,pack_emissions,histogram,plane_dct]
         [--split] [--split-this]
 
 OTHER_CSRC is a csrc/ directory, for example the parent commit's unpacked
@@ -35,7 +35,14 @@ captured from encodes of the fixtures of tests/torch_port_fixtures.py:
 - pack_emissions: the staged pack's call on the frame (DMMT_NO_FUSED_PACK=1,
   one_dispatch="off") and the 16 x 1080p fused chunk's call with its
   word-aligned per-image `boff` (emission_pack.cu), each timed with the
-  zero fill of its word buffer, as the wrapper runs it.
+  zero fill of its word buffer, as the wrapper runs it;
+- histogram: the frame's four weighted-histogram calls under
+  DMMT_HIST=pallas (one_dispatch="off": luma DC and AC, then Cb and Cr
+  concatenated, DC and AC) and the 16 x 1080p fused chunk's four grouped
+  calls (histogram.cu);
+- plane_dct: the frame's two Arai plane-DCT calls under DMMT_P1=pallas, in
+  the route's order: Cb and Cr stacked [2160, 1920], then luma
+  [2160, 3840] (plane_dct.cu).
 
 Both builds are held against the plain versions on every input, exactly.
 A scan-pack source is called through the C signature it declares: the
@@ -53,11 +60,17 @@ from host memory (copied into the launch's parameters); so does a matmul
 plane-DCT build for its DCT matrix. An emission-pack build that declares
 block_bits is given them (int32) and writes the total bit count itself;
 for one that does not, the total is computed as its wrapper did, outside
-the timed calls. Rounds run in
+the timed calls. A weighted-histogram build that declares no state is
+given an output zeroed in each call (the torch.zeros its wrapper ran);
+one that declares it keeps the state between calls, with no fill. An
+Arai plane-DCT build takes its constants from device memory and a float32
+table (converted here, outside the timed calls) or, where its source
+declares c_host, its constants from host memory and the table as the
+route passes it. Rounds run in
 the order other, this, this, other; every time is
 tools/timing.device_ms of one call list, beside the library call that
 computes the same function where there is one (torch.matmul by M,
-torch.gather). Prints one JSON line per (input, build, round), one summary
+torch.gather, torch.einsum C X C^T, torch.bincount). Prints one JSON line per (input, build, round), one summary
 line with the medians (also of each call of a list alone) and the SM clock
 and power draw that nvidia-smi reads while this checkout's call list runs
 back to back for a second, and the float32 rate of one 8192^3
@@ -78,8 +91,16 @@ includes its dct8.cuh and repeats its kernel's stages, the rest of the
 work kept behind a store that a runtime zero disables); on the
 emission-pack inputs, the wrapper's torch.zeros of the word buffer, the
 kernel alone (on a buffer zeroed once) and the zero fill with the kernel;
-with --split-this the same for this checkout's; one JSON line each. Needs
-a card and nvcc.
+on the weighted-histogram inputs, each call alone (a build without state
+on an output zeroed once, outside the timing), the wrapper's torch.zeros
+of each output alone, each call as the wrapper runs it and the four
+together; on the Arai plane-DCT inputs, each launch alone and the pair,
+and for a build with its constants in device memory (8 x 128 tiles in
+shared memory) its loads alone and its loads with the row pass (through
+a shim as for the matmul plane DCT); on both plane-DCT inputs, as a
+yardstick, a torch conversion of each plane to int16 (the same bytes);
+with --split-this the same for this checkout's; one JSON line each.
+Needs a card and nvcc.
 """
 
 from __future__ import annotations
@@ -106,20 +127,26 @@ from .timing import device_ms
 
 REPO = Path(__file__).resolve().parents[2]
 KINDS = ("dct", "lookup", "phase1", "phase1_mm", "block_hist", "scan_pack", "scan_pack_slab",
-         "plane_dct_mm", "pack_emissions")
+         "plane_dct_mm", "pack_emissions", "histogram", "plane_dct")
 SOURCES = {"dct": "block_dct.cu", "lookup": "table_lookup.cu", "phase1": "phase1.cu",
            "phase1_mm": "fused_phase1.cu", "block_hist": "block_hist.cu",
            "scan_pack": "scan_pack.cu", "scan_pack_slab": "scan_pack.cu",
-           "plane_dct_mm": "mxu_dct.cu", "pack_emissions": "emission_pack.cu"}
+           "plane_dct_mm": "mxu_dct.cu", "pack_emissions": "emission_pack.cu",
+           "histogram": "histogram.cu", "plane_dct": "plane_dct.cu"}
 ENTRY_POINTS = {"dct": "dmmt_block_dct_zz", "lookup": "dmmt_table_lookup_grouped",
                 "phase1": "dmmt_phase1", "phase1_mm": "dmmt_phase1_mm",
                 "block_hist": "dmmt_block_hist", "scan_pack": "dmmt_scan_pack",
                 "scan_pack_slab": "dmmt_scan_pack_slab", "plane_dct_mm": "dmmt_plane_dct_mm",
-                "pack_emissions": "dmmt_pack_emissions"}
+                "pack_emissions": "dmmt_pack_emissions", "histogram": "dmmt_histogram_grouped",
+                "plane_dct": "dmmt_plane_dct"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the matmul plane DCT's C signature with its DCT matrix and a float32 q in
-# device memory (plane, height, width, c, q, out)
-DEVICE_MATRIX_MM_SIGNATURE = (_P, _I, _I, _P, _P, _P, _P)
+# the plane DCTs' C signature with their constants (the matmul's DCT matrix,
+# the Arai constants) and a float32 q in device memory (plane, height,
+# width, constants, q, out)
+DEVICE_CONSTANTS_PLANE_SIGNATURE = (_P, _I, _I, _P, _P, _P, _P)
+# the weighted histogram's C signature without state (symbols, weights,
+# n_groups, m, n_bins, zeroed out)
+ZEROED_HIST_SIGNATURE = (_P, _P, _I, _LL, _I, _P, _P)
 # the emission pack's C signature without block_bits and total_bits (values,
 # lens, offs, boff, n_blocks, words, n_words)
 NO_END_PACK_SIGNATURE = (_P, _P, _P, _P, _LL, _P, _LL, _P)
@@ -214,6 +241,55 @@ extern "C" int split_mm(const float* plane, int height, int width, const float* 
     return cudaGetLastError();
 }
 """
+# A shim around an Arai plane-DCT build whose kernel stages 8 x 128 tiles in
+# shared memory with its constants (the earlier design): the same grid, the
+# loads of the constants, the table and the tile, and the row pass, each
+# stage alone; the rest kept behind a store that sink = 0 disables.
+PLANE_SPLIT_SHIM = r"""
+#include "dct8.cuh"
+using namespace dmmt;
+namespace {
+constexpr int TILE_W = 128, LD = TILE_W + 1, THREADS = 128;
+template <bool ROWS>
+__global__ void __launch_bounds__(THREADS) stage_kernel(
+    const float* __restrict__ plane, int width, int tiles_x, const float* __restrict__ consts,
+    const float* __restrict__ q, short* __restrict__ out, int sink) {
+    __shared__ float s_k[K_COUNT];
+    __shared__ float s_q[64];
+    __shared__ float s[8 * LD];
+    const int tid = threadIdx.x;
+    for (int i = tid; i < K_COUNT; i += THREADS) s_k[i] = consts[i];
+    for (int i = tid; i < 64; i += THREADS) s_q[i] = q[i];
+    const int row0 = (blockIdx.x / tiles_x) * 8, col0 = (blockIdx.x % tiles_x) * TILE_W;
+    const int valid = min(TILE_W, width - col0);
+    for (int i = tid; i < 8 * TILE_W; i += THREADS) {
+        const int r = i / TILE_W, c = i % TILE_W;
+        s[r * LD + c] = c < valid ? plane[static_cast<size_t>(row0 + r) * width + col0 + c] : 0.0f;
+    }
+    __syncthreads();
+    if (ROWS) {
+        for (int i = tid; i < 8 * (TILE_W / 8); i += THREADS) {
+            const int r = i % 8, g = i / 8;
+            if (g * 8 < valid) arai8(&s[r * LD + g * 8], 1, s_k);
+        }
+        __syncthreads();
+    }
+    if (sink)
+        out[static_cast<size_t>(blockIdx.x) * THREADS + tid] = static_cast<short>(s[tid] + s_q[tid % 64]);
+}
+}  // namespace
+extern "C" int split_plane(const float* plane, int height, int width, const float* consts,
+                           const float* q, short* out, int rows, int sink, void* stream) {
+    const int tiles_x = (width + TILE_W - 1) / TILE_W;
+    const dim3 grid(tiles_x * (height / 8));
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (rows)
+        stage_kernel<true><<<grid, THREADS, 0, s>>>(plane, width, tiles_x, consts, q, out, sink);
+    else
+        stage_kernel<false><<<grid, THREADS, 0, s>>>(plane, width, tiles_x, consts, q, out, sink);
+    return cudaGetLastError();
+}
+"""
 SPLIT_SIGNATURES = {
     "split_bits": (_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P),
     "split_scan": (_P, _I, _LL, _P, _P, _P),
@@ -231,16 +307,20 @@ def convention(csrc: Path, kind: str) -> int:
     three-launch signature, else the blocks per tile of the one-launch one.
     Block histogram: 0 for one segment, 1 for two. Fused matmul phase 1
     and matmul plane DCT: 0 for constants in device memory, 1 for host
-    memory. Emission pack: 0 without block_bits, 1 with (the kernel
-    writes the total bit count). Else 0."""
+    memory; Arai plane DCT the same (1 also takes the table as passed).
+    Emission pack: 0 without block_bits, 1 with (the kernel writes the
+    total bit count). Weighted histogram: 0 for an output zeroed by the
+    caller, 1 for the state buffer. Else 0."""
     if kind.startswith("scan_pack"):
         if three_launch(csrc):
             return 0
         return int(re.search(r"constexpr int TILE = (\d+);", (csrc / "scan_pack.cu").read_text())[1])
     if kind == "block_hist":
         return int("long long n_blocks, long long n_valid" not in (csrc / "block_hist.cu").read_text())
-    if kind in ("phase1_mm", "plane_dct_mm"):
+    if kind in ("phase1_mm", "plane_dct_mm", "plane_dct"):
         return int("c_host" in (csrc / SOURCES[kind]).read_text())
+    if kind == "histogram":
+        return int("long long* state" in (csrc / "histogram.cu").read_text())
     if kind == "pack_emissions":
         return int("const int* block_bits" in (csrc / "emission_pack.cu").read_text())
     return 0
@@ -287,18 +367,24 @@ def build_other(csrc: Path, kinds: list[str]) -> ctypes.CDLL:
     if "pack_emissions" in kinds and not convention(csrc, "pack_emissions"):
         sigs["dmmt_pack_emissions"] = NO_END_PACK_SIGNATURE
     if "plane_dct_mm" in kinds and not convention(csrc, "plane_dct_mm"):
-        sigs["dmmt_plane_dct_mm"] = DEVICE_MATRIX_MM_SIGNATURE
+        sigs["dmmt_plane_dct_mm"] = DEVICE_CONSTANTS_PLANE_SIGNATURE
+    if "plane_dct" in kinds and not convention(csrc, "plane_dct"):
+        sigs["dmmt_plane_dct"] = DEVICE_CONSTANTS_PLANE_SIGNATURE
+    if "histogram" in kinds and not convention(csrc, "histogram"):
+        sigs["dmmt_histogram_grouped"] = ZEROED_HIST_SIGNATURE
     return _bind(lib, sigs)
 
 
-def build_mm_split(csrc: Path) -> ctypes.CDLL:
-    """The stages of csrc's shared-memory-tile matmul plane DCT, behind
-    split_mm (MM_SPLIT_SHIM)."""
-    shim = build.BUILD_DIR / "split_shim" / "mxu_dct_split.cu"
+def build_stage_split(csrc: Path, kind: str) -> ctypes.CDLL:
+    """The stages of csrc's shared-memory-tile plane DCT of `kind`, behind
+    split_mm (MM_SPLIT_SHIM) or split_plane (PLANE_SPLIT_SHIM)."""
+    name, text = (("split_mm", MM_SPLIT_SHIM) if kind == "plane_dct_mm"
+                  else ("split_plane", PLANE_SPLIT_SHIM))
+    shim = build.BUILD_DIR / "split_shim" / f"{name}.cu"
     shim.parent.mkdir(parents=True, exist_ok=True)
-    shim.write_text(MM_SPLIT_SHIM)
-    out = _compile([shim], "kernel_ab_mm_split", ("-I", str(csrc)), (csrc / "dct8.cuh",))
-    return _bind(ctypes.CDLL(str(out)), {"split_mm": (_P, _I, _I, _P, _P, _P, _I, _I, _P)})
+    shim.write_text(text)
+    out = _compile([shim], f"kernel_ab_{name}", ("-I", str(csrc)), (csrc / "dct8.cuh",))
+    return _bind(ctypes.CDLL(str(out)), {name: (_P, _I, _I, _P, _P, _P, _I, _I, _P)})
 
 
 def build_split(csrc: Path) -> ctypes.CDLL:
@@ -342,7 +428,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     import dmmt_jpeg_encoder_tpu_torch as port
     from .. import onedispatch
     from ..bitstream import device_pack, emission_pack
-    from ..ops import block_hist, fused, fused_arai, fused_phase1, mxu_dct
+    from ..ops import block_hist, fused, fused_arai, fused_phase1, histogram, mxu_dct, pallas_dct
     from torch_port_fixtures import BATCH_FIXTURES, batch_frames, fixture_pixels
 
     calls: list = []
@@ -380,6 +466,12 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         def wrapped(plane, qtable):
             calls.append((_contig(plane), qtable.to(plane.device).contiguous()))
             return real(plane, qtable)
+        return wrapped
+
+    def grab_weighted(real):
+        def wrapped(symbols, weights, n_bins):
+            calls.append((_contig(symbols.to(torch.int32)), _contig(weights.to(torch.int32)), n_bins))
+            return real(symbols, weights, n_bins)
         return wrapped
 
     def grab_emissions(real):
@@ -479,6 +571,29 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
             port.encode_batch(frames, fb["maxval"], cfg, fused_batch=fb["n"], device=dev)
             inputs[f"pack_emissions batch_1080p_p420 fused_batch={fb['n']}"] = ("pack_emissions", calls[:])
             calls.clear()
+    if "histogram" in kinds:
+        with _patched(histogram, "histogram_grouped", grab_weighted):
+            os.environ["DMMT_HIST"] = "pallas"
+            try:
+                port.encode_array(px, 255, dataclasses.replace(cfg, one_dispatch="off"), device=dev)
+            finally:
+                os.environ.pop("DMMT_HIST")
+            inputs["histogram 4k_p420 DMMT_HIST=pallas (luma DC, AC; Cb+Cr DC, AC)"] = (
+                "histogram", calls[:])
+            calls.clear()
+            port.encode_batch(frames, fb["maxval"], cfg, fused_batch=fb["n"], device=dev)
+            inputs[f"histogram batch_1080p_p420 fused_batch={fb['n']} (luma DC, AC; Cb+Cr DC, AC)"] = (
+                "histogram", calls[:])
+            calls.clear()
+    if "plane_dct" in kinds:
+        os.environ["DMMT_P1"] = "pallas"
+        try:
+            with _patched(pallas_dct, "plane_dct_quant", grab_mm):
+                port.encode_array(px, 255, cfg, device=dev)
+        finally:
+            os.environ.pop("DMMT_P1")
+        inputs["plane_dct 4k_p420 DMMT_P1=pallas (Cb, Cr stacked; luma)"] = ("plane_dct", calls[:])
+        calls.clear()
     torch.cuda.synchronize()
     return inputs
 
@@ -578,22 +693,42 @@ def _pack_buffers(call, conv: int, kind: str) -> tuple:
     return words, total, scratch, words
 
 
-def _mm_args(call, conv: int) -> tuple:
-    """(C arguments, output) of one matmul plane-DCT call in the build's
-    convention: conv 1, the DCT matrix from host memory and the table as
-    the route passes it (uint8, flagged); conv 0, both in device memory,
-    the table as float32 (converted here, outside the timed calls)."""
+def _plane_args(call, conv: int, kind: str) -> tuple:
+    """(C arguments, output) of one plane-DCT call of `kind` in the build's
+    convention: conv 1, the constants (the matmul's DCT matrix, the Arai
+    constants) from host memory and the table as the route passes it
+    (uint8, flagged); conv 0, both in device memory, the table as float32
+    (converted here, outside the timed calls)."""
     from ..ops.dct import dct_matrix
+    from ..ops.fused_arai import kernel_constants
 
     plane, q = call
     h, w = int(plane.shape[0]), int(plane.shape[1])
     out = torch.empty(plane.shape, dtype=torch.int16, device=plane.device)
+    consts = dct_matrix() if kind == "plane_dct_mm" else kernel_constants()
     if conv:
         if q.dtype != torch.uint8:
             q = q.to(torch.float32).contiguous()
-        return (plane, h, w, dct_matrix(), q, int(q.dtype == torch.uint8), out), out
-    c = torch.from_numpy(dct_matrix()).to(plane.device)
-    return (plane, h, w, c, q.to(torch.float32).contiguous(), out), out
+        return (plane, h, w, consts, q, int(q.dtype == torch.uint8), out), out
+    consts = torch.from_numpy(consts).to(plane.device)
+    return (plane, h, w, consts, q.to(torch.float32).contiguous(), out), out
+
+
+def _weighted_hist_args(call, conv: int) -> tuple:
+    """(C arguments, the output the caller zero-fills in each call (conv 0;
+    none for conv 1, whose state is zeroed once), output) of one
+    weighted-histogram call in the build's convention."""
+    symbols, weights, n_bins = call
+    g, m = int(symbols.shape[0]), int(symbols.shape[1])
+    dev = symbols.device
+    if conv:
+        from ..ops.block_hist import STATE_INTS
+
+        state = torch.zeros(STATE_INTS, dtype=torch.int32, device=dev)
+        out = torch.empty((g, n_bins), dtype=torch.int32, device=dev)
+        return (symbols, weights, g, m, n_bins, state, out), (), out
+    out = torch.zeros((g, n_bins), dtype=torch.int32, device=dev)
+    return (symbols, weights, g, m, n_bins, out), (out,), out
 
 
 def _emission_args(call, conv: int) -> tuple:
@@ -634,9 +769,13 @@ def runner(lib, kind: str, args: list, conv: int = 0):
             cargs, fills, o = _hist_buffers(call, conv)
             prepared.append((cargs, fills))
             outs.append(o)
-        elif kind == "plane_dct_mm":
-            cargs, o = _mm_args(call, conv)
+        elif kind in ("plane_dct_mm", "plane_dct"):
+            cargs, o = _plane_args(call, conv, kind)
             prepared.append((cargs, ()))
+            outs.append(o)
+        elif kind == "histogram":
+            cargs, fills, o = _weighted_hist_args(call, conv)
+            prepared.append((cargs, fills))
             outs.append(o)
         elif kind == "pack_emissions":
             cargs, fill, o = _emission_args(call, conv)
@@ -659,7 +798,7 @@ def runner(lib, kind: str, args: list, conv: int = 0):
         elif kind in ("phase1", "phase1_mm"):
             rgb, cargs = prepared[k]
             err = getattr(lib, entry)(rgb.data_ptr(), *(_arg(x) for x in cargs), stream_)
-        elif kind in ("block_hist", "plane_dct_mm", "pack_emissions"):
+        elif kind in ("block_hist", "plane_dct_mm", "pack_emissions", "histogram", "plane_dct"):
             cargs, fills = prepared[k]
             for t in fills:
                 t.zero_()
@@ -686,9 +825,10 @@ def plain(kind: str, args: list) -> list:
     from ..ops.block_hist import block_histograms_plain
     from ..ops.fused import fused_reference
     from ..ops.fused_phase1 import fused_phase1_reference
+    from ..ops.histogram import histogram_grouped_plain
     from ..ops.lookup import table_lookup_grouped_plain
     from ..ops.mxu_dct import mxu_dct_reference
-    from ..pipeline import phase1_zigzag_blocks
+    from ..pipeline import phase1_zigzag_blocks, plane_dct_quant
 
     if kind == "dct":
         return [fused_reference(a, b) for a, b, _ in args]
@@ -702,6 +842,10 @@ def plain(kind: str, args: list) -> list:
         return [list(block_histograms_plain(torch.cat(call))) for call in args]
     if kind == "plane_dct_mm":
         return [mxu_dct_reference(*call) for call in args]
+    if kind == "plane_dct":
+        return [plane_dct_quant(*call) for call in args]
+    if kind == "histogram":
+        return [histogram_grouped_plain(*call) for call in args]
     if kind == "pack_emissions":
         return [list(pack_to_words(*call)) for call in args]
     fn = pack_scan_slab_plain if kind == "scan_pack_slab" else pack_scan_plain
@@ -711,15 +855,20 @@ def plain(kind: str, args: list) -> list:
 def library(kind: str, args: list):
     """One PyTorch call per captured call computing the same function
     (torch.matmul by M without the rounding, TF32 off; torch.gather;
-    torch.einsum C X C^T without the division and rounding), or None where
-    no PyTorch call does."""
+    torch.einsum C X C^T without the division and rounding; torch.bincount
+    with float32 weights on group-offset symbols, as chip_smoke.py times
+    it), or None where no PyTorch call does."""
     if kind == "dct":
         flat = [(a.reshape(-1, 64), b) for a, b, _ in args]
         return lambda: [torch.matmul(a, b) for a, b in flat]
     if kind == "lookup":
         gathers = [(b, a.to(torch.int64)) for a, b, _ in args]
         return lambda: [torch.gather(t, 1, s) for t, s in gathers]
-    if kind == "plane_dct_mm":
+    if kind == "histogram":
+        flat = [((s + torch.arange(s.shape[0], device=s.device)[:, None] * n).reshape(-1),
+                 w.reshape(-1).to(torch.float32), s.shape[0] * n) for s, w, n in args]
+        return lambda: [torch.bincount(s, weights=w, minlength=m) for s, w, m in flat]
+    if kind in ("plane_dct_mm", "plane_dct"):
         from ..ops.dct import dct_matrix
 
         c = torch.from_numpy(dct_matrix()).to(args[0][0].device)
@@ -783,7 +932,9 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
     fills alone and of the whole call; of csrc's phase-1 kernels; and of
     csrc's block-histogram launches alone (luma; chroma), a one-segment
     call's two zero fills and the torch.cat of Cb and Cr, and the whole
-    pair of calls; on the captured inputs; lib_all is csrc's full build."""
+    pair of calls; of the plane DCTs' and the weighted histogram's calls
+    (dct_split, weighted_split); on the captured inputs; lib_all is
+    csrc's full build."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     out = {}
     for name, (kind, calls) in inputs.items():
@@ -794,8 +945,11 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
         if kind == "block_hist":
             out[name] = hist_split(lib_all, calls, conv)
             continue
-        if kind == "plane_dct_mm":
-            out[name] = mm_split(csrc, lib_all, calls, conv)
+        if kind in ("plane_dct_mm", "plane_dct"):
+            out[name] = dct_split(csrc, lib_all, kind, calls, conv)
+            continue
+        if kind == "histogram":
+            out[name] = weighted_split(lib_all, calls, conv)
             continue
         if kind == "pack_emissions":
             out[name] = emission_split(lib_all, calls, conv, csrc == build.CSRC)
@@ -842,33 +996,40 @@ def split_times(csrc: Path, inputs: dict, lib_all) -> dict:
     return out
 
 
-def mm_split(csrc: Path, lib, calls: list, conv: int) -> dict:
-    """ms of each matmul plane-DCT launch alone (labelled by its plane's
+def dct_split(csrc: Path, lib, kind: str, calls: list, conv: int) -> dict:
+    """ms of each plane-DCT launch of `kind` alone (labelled by its plane's
     shape) and of the pair; for a shared-memory-tile build (conv 0), also
-    of its loads alone and its loads with the column pass, per launch and
-    for the pair."""
+    of its loads alone and its loads with its first pass (the matmul's
+    column pass, the Arai row pass), per launch and for the pair; and of a
+    torch conversion of the two planes to int16, which moves the same
+    bytes."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    run, singles, _ = runner(lib, "plane_dct_mm", calls, conv)
+    run, singles, _ = runner(lib, kind, calls, conv)
     labels = [str(list(call[0].shape)) for call in calls]
     t = {}
     if not conv:
-        shim = build_mm_split(csrc)
-        staged = [_mm_args(call, conv)[0] for call in calls]
+        shim = build_stage_split(csrc, kind)
+        split = shim.split_mm if kind == "plane_dct_mm" else shim.split_plane
+        staged = [_plane_args(call, conv, kind)[0] for call in calls]
+        first = "column pass" if kind == "plane_dct_mm" else "row pass"
 
-        def stage(cols: int, which: list):
+        def stage(more: int, which: list):
             def fn():
                 for plane, h, w, c, q, o in which:
-                    build.check(shim.split_mm(plane.data_ptr(), h, w, c.data_ptr(), q.data_ptr(),
-                                              o.data_ptr(), cols, 0, stream()), "split_mm")
+                    build.check(split(plane.data_ptr(), h, w, c.data_ptr(), q.data_ptr(),
+                                      o.data_ptr(), more, 0, stream()), "split stage")
             return fn
 
-        for cols, label in ((0, "loads"), (1, "loads + column pass")):
+        for cols, label in ((0, "loads"), (1, f"loads + {first}")):
             for one, part in zip(staged, labels):
                 t[f"{part}: {label}"] = device_ms(stage(cols, [one]))
             t[f"pair: {label}"] = device_ms(stage(cols, staged))
     for fn, part in zip(singles, labels):
         t[f"{part}: whole kernel"] = device_ms(fn)
     t["pair: whole kernels"] = device_ms(run)
+    # a yardstick of the card's streaming rate for the same bytes: one
+    # PyTorch conversion of each plane to int16 (4 bytes read, 2 written)
+    t["pair: torch .to(int16) of the planes"] = device_ms(lambda: [c[0].to(torch.int16) for c in calls])
     return t
 
 
@@ -895,6 +1056,29 @@ def emission_split(lib, calls: list, conv: int, this: bool) -> dict:
         t["pack_emission_words (the wrapper)"] = device_ms(lambda: pack_emission_words(*call))
     t["n_blocks"], t["n_words"] = int(call[0].shape[0]), int(call[4])
     t["live slots"] = int((call[1] > 0).sum())
+    return t
+
+
+def weighted_split(lib, calls: list, conv: int) -> dict:
+    """ms of each weighted-histogram call alone (a build without state on
+    an output zeroed once, outside the timing; labelled by its shape and
+    bins), of the wrapper's torch.zeros of each output (conv 0), of each
+    call as the wrapper runs it, and of all of them."""
+    run, singles, _ = runner(lib, "histogram", calls, conv)
+    t = {}
+    for call, fn in zip(calls, singles):
+        sym, n_bins = call[0], call[2]
+        label = f"{list(sym.shape)} x {n_bins} bins"
+        cargs, fills, _ = _weighted_hist_args(call, conv)
+        for x in fills:
+            x.zero_()
+        t[f"{label}: kernel alone"] = device_ms(lambda cargs=cargs: build.check(lib.dmmt_histogram_grouped(
+            *(_arg(x) for x in cargs), torch.cuda.current_stream().cuda_stream), "dmmt_histogram_grouped"))
+        if not conv:
+            t[f"{label}: torch.zeros"] = device_ms(
+                lambda shape=fills[0].shape: torch.zeros(shape, dtype=torch.int32, device=sym.device))
+        t[f"{label}: as the wrapper runs it"] = device_ms(fn)
+    t["all calls as the wrappers run them"] = device_ms(run)
     return t
 
 

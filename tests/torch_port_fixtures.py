@@ -250,6 +250,57 @@ def plane_mm_edge_inputs(h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
     return plane, q
 
 
+# Edge shapes of the Arai plane DCT (csrc/plane_dct.cu), shared the same way:
+# the matmul plane DCT's shapes and inputs (plane_mm_edge_inputs: saturated
+# groups, flat odd groups whose DC lands on x.5 after / q[0] = 16, the
+# largest AC, a table past 8 bits on the stacked chroma shape), since the
+# two kernels split the plane alike (two threads per 8x8 group).
+PLANE_DCT_EDGE_SHAPES = PLANE_MM_EDGE_SHAPES
+
+
+# Edge cases of the weighted histogram (csrc/histogram.cu), shared the same
+# way: (G, M, n_bins, content). M of 0, 1, 3, 4, 5 and an odd few hundred
+# around the kernel's 16-byte quads; G of 3 and 16 with M % 4 != 0, so that
+# every row after the first starts unaligned; n_bins of 1, 16 and 256;
+# rows past the kernel's step of 2048 quads a CTA. content:
+# - "in_range": symbols in [0, n_bins), weights 0, 1, up to 1000 and
+#   negative;
+# - "out_of_range": also symbols below 0 and at or past n_bins (each row
+#   starts with -1 and ends with n_bins), small weights (the TPU kernel
+#   sums a tile in float32);
+# - "past_2_24": every entry of a row in one bin with weights near 1000, so
+#   that the bin's count passes 2^24 (where float32 would round).
+HISTOGRAM_EDGE_CASES = tuple(
+    (1, m, n, "in_range") for m in (0, 1, 3, 4, 5, 389) for n in (1, 16, 256)
+) + tuple(
+    (g, m, n, "in_range") for g in (3, 16) for m in (5, 389) for n in (16, 256)
+) + (
+    (1, 40_001, 16, "past_2_24"), (3, 20_003, 256, "past_2_24"),
+    (1, 2_500_003, 256, "in_range"), (3, 300_001, 16, "in_range"),
+    (1, 389, 1, "out_of_range"), (1, 389, 16, "out_of_range"), (1, 389, 256, "out_of_range"),
+    (3, 389, 16, "out_of_range"), (16, 5, 256, "out_of_range"), (3, 5, 1, "out_of_range"),
+)
+
+
+def histogram_edge_inputs(case: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """int32 [G, M] symbols and int32 [G, M] weights of one
+    HISTOGRAM_EDGE_CASES case."""
+    g, m, n_bins, content = case
+    rng = np.random.default_rng(HISTOGRAM_EDGE_CASES.index(case) + 13000)
+    if content == "past_2_24":
+        symbols = np.full((g, m), n_bins // 2, np.int64)
+        weights = rng.integers(990, 1010, (g, m))
+        symbols[:, ::7] = rng.integers(0, n_bins, symbols[:, ::7].shape)
+    elif content == "in_range":
+        symbols = rng.integers(0, n_bins, (g, m))
+        weights = rng.choice([0, 0, 0, 1, 1, 1, 2, 7, 1000, -1, -3], (g, m))
+    else:
+        symbols = rng.integers(-3, n_bins + 3, (g, m))
+        symbols[:, 0], symbols[:, -1] = -1, n_bins
+        weights = rng.integers(-2, 4, (g, m))
+    return symbols.astype(np.int32), weights.astype(np.int32)
+
+
 # Edge cases of the emission pack (csrc/emission_pack.cu), shared the same
 # way. EMISSION_PACK_TILE and EMISSION_PACK_TILE_WORDS are TILE and
 # TILE_WORDS there: the blocks of a CTA, and the shared word window past
