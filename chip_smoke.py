@@ -87,6 +87,18 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    DMMT_P1=mxu and FUSED, each held against the route's goldens with the
    route's kernels counted; warm 4K encode time, one-dispatch and
    two-dispatch, and one-dispatch under each route;
+   then channel-planar input: the 4K frame and the 7x17 fixture as
+   [3, H, W] (a host array, and a tensor on the card) through
+   start_one_dispatch on the default route and under DMMT_P1=fused1, the
+   odd batch and the 16 x 1080p batch as planar [B, 3, H, W] host stacks
+   through start_one_dispatch_slab; start_one_dispatch_multi on 4 x 1080p
+   (interleaved and planar host stacks), every state finished in the JAX
+   package's call form (state, config); each JPEG held against its golden
+   with its launches counted; the multi start + finishes timed against a
+   loop of single starts + finishes, in 10 alternating rounds; the 4K
+   golden JPEG decoded by the port's debug.jpeg_decoder (the card's machine
+   has no PIL), its PSNR against the source held to the floor that
+   tests/test_torch_tooling.py measures on the CPU;
 5. the sharded encode (parallel/sharding.py), its shards on card 0 (a
    device list that repeats it), each path's launches counted with the
    capability probe among them: every single-image fixture at
@@ -509,7 +521,9 @@ def main() -> int:
         fused_pack_words,
         fused_pack_words_slab,
     )
+    from dmmt_jpeg_encoder_tpu_torch.debug.jpeg_decoder import decode_jpeg
     from dmmt_jpeg_encoder_tpu_torch.encoder import HuffmanTables, fused_max_blocks, slab_depth
+    from dmmt_jpeg_encoder_tpu_torch.encoder import _jpeg as jpeg_bytes
     from dmmt_jpeg_encoder_tpu_torch.huffman.device_tables import (
         device_code_tables_batched,
         pad_dc_histogram,
@@ -551,6 +565,7 @@ def main() -> int:
         BATCH_FIXTURES,
         BLOCK_DCT_EDGE_N,
         BLOCK_HIST_EDGE_CASES,
+        DECODE_PSNR_FLOOR_4K,
         EMISSION_PACK_EDGE_CASES,
         FIXTURES,
         HISTOGRAM_EDGE_CASES,
@@ -575,6 +590,7 @@ def main() -> int:
         lookup_edge_inputs,
         phase1_edge_pixels,
         plane_mm_edge_inputs,
+        psnr,
         random_blocks,
         scan_pack_edge_blocks,
         scan_pack_edge_mask,
@@ -1223,6 +1239,97 @@ def main() -> int:
                     if [sha256(j) for j in out] != want:
                         raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
                     log(f"{route}: {name} {label}: every frame == JAX golden")
+
+    # --- 4b. channel-planar input, start_one_dispatch_multi, the decoder ----
+    def jpegs_of(states, cfg, shape):
+        """Finish states in the JAX package's call form -> JPEG bytes."""
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        for state in states:
+            onedispatch.prefetch_one_dispatch(state, cfg)
+        return [jpeg_bytes(shape, cfg, lq, cq, *onedispatch.finish_one_dispatch(state, cfg))
+                for state in states]
+
+    def check_frames(label, jpegs, want):
+        if [sha256(j) for j in jpegs] != [g["jpeg_sha256"] for g in want]:
+            raise AssertionError(f"{label}: cuda JPEGs differ from the JAX goldens")
+        log(f"{label}: every JPEG == JAX golden ({len(jpegs)})")
+
+    def per_image(counts: dict, n: int) -> dict:
+        return {**none_new, "phase1": 0, "block_hist": 2 * n, "scan_pack": n, "scan_pack_slab": 0,
+                **{k: v * n for k, v in counts.items()}}
+
+    for name in ("4k_p420", "7x17_p444"):
+        f, px = FIXTURES[name], images[name]
+        cfg = configs[name]
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        planar = np.ascontiguousarray(px.transpose(2, 0, 1))
+        for route, counts in ((None, {"phase1": 1}), ("p1_fused1", ROUTE_LAUNCHES["p1_fused1"])):
+            want = goldens[name] if route is None else route_goldens[route][name]
+            for layout, pixels in (("planar host array", planar),
+                                   ("planar tensor on the card", torch.from_numpy(planar).to(dev))):
+                label = f"{name} start_one_dispatch, {layout}, route {route or 'default'}"
+                with route_env(route):
+                    jpegs = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
+                        pixels, f["maxval"], cfg, lq, cq, device=dev)], cfg, px.shape[:2]),
+                        per_image(counts, 1))
+                check_frames(label, jpegs, [want])
+    for name in ("batch_odd_p422", "batch_1080p_p420"):
+        f, frames = BATCH_FIXTURES[name], batches[name]
+        cfg = config_of(f)
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        stack = np.ascontiguousarray(np.stack(frames).transpose(0, 3, 1, 2))
+        label = f"{name} start_one_dispatch_slab, planar host stack [B, 3, H, W]"
+        jpegs = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_slab(
+            stack, f["maxval"], cfg, lq, cq, device=dev), cfg, frames[0].shape[:2]),
+            {**per_image({}, f["n"]), "phase1": 1})
+        check_frames(label, jpegs, batch_goldens[name])
+
+    fm, frames_m = BATCH_FIXTURES["batch_1080p_p420"], batches["batch_1080p_p420"][:4]
+    cfg_m, shape_m = config_of(fm), frames_m[0].shape[:2]
+    lq_m, cq_m = quantization_table_pair(cfg_m.quantization_preset, cfg_m.quality)
+    stack_m = np.stack(frames_m)
+    for layout, pixels in (("[B, H, W, 3]", stack_m),
+                           ("planar [B, 3, H, W]", np.ascontiguousarray(stack_m.transpose(0, 3, 1, 2)))):
+        label = f"batch_1080p_p420 x 4 start_one_dispatch_multi, host {layout}"
+        jpegs = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_multi(
+            pixels, fm["maxval"], cfg_m, lq_m, cq_m, device=dev), cfg_m, shape_m),
+            per_image({"phase1": 1}, 4))
+        check_frames(label, jpegs, batch_goldens["batch_1080p_p420"][:4])
+
+    def multi_scans():
+        states = onedispatch.start_one_dispatch_multi(stack_m, fm["maxval"], cfg_m, lq_m, cq_m, device=dev)
+        for state in states:
+            onedispatch.prefetch_one_dispatch(state)
+        return [onedispatch.finish_one_dispatch(state) for state in states]
+
+    def single_scans():
+        return [onedispatch.finish_one_dispatch(onedispatch.start_one_dispatch(
+            px, fm["maxval"], cfg_m, lq_m, cq_m, device=dev)) for px in frames_m]
+
+    if multi_scans() != single_scans():
+        raise AssertionError("start_one_dispatch_multi: scans differ from single starts")
+    rounds = {"multi": [], "singles": []}
+    for order in (("multi", "singles"), ("singles", "multi")) * 5:
+        for arm in order:
+            t0 = time.perf_counter()
+            (multi_scans if arm == "multi" else single_scans)()
+            rounds[arm].append((time.perf_counter() - t0) * 1e3)
+    log("batch_1080p_p420 x 4, host frames -> scan bytes + tables, 10 alternating rounds, median "
+        f"(min-max) ms: start_one_dispatch_multi + finishes "
+        f"{statistics.median(rounds['multi']):.3f} ({min(rounds['multi']):.3f}-{max(rounds['multi']):.3f}), "
+        f"a loop of start_one_dispatch + finish {statistics.median(rounds['singles']):.3f} "
+        f"({min(rounds['singles']):.3f}-{max(rounds['singles']):.3f}) on {gpu}")
+
+    t0 = time.perf_counter()
+    jpeg4k = port.encode_array(four_k, 255, cfg4, device=dev)
+    check_golden("4k_p420", jpeg4k, "encode_array for the decoder")
+    decoded = decode_jpeg(jpeg4k)
+    value = psnr(decoded, four_k)
+    log(f"4k_p420 decoded by debug.jpeg_decoder (numpy, on the host): {decoded.shape}, PSNR "
+        f"{value!r} dB against the source pixels (floor {DECODE_PSNR_FLOOR_4K}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if decoded.shape != four_k.shape or not value >= DECODE_PSNR_FLOOR_4K:
+        raise AssertionError(f"4k_p420 decode: PSNR {value} dB below the floor {DECODE_PSNR_FLOOR_4K}")
 
     # --- 5. the sharded encode (parallel/sharding.py) ------------------------
     # n shards on card 0 (a device list that repeats it); each path starts

@@ -1,9 +1,11 @@
 """One-dispatch encode: pixels -> packed scan words with no mid-encode sync.
 
 Counterpart of dmmt_jpeg_encoder_tpu.onedispatch (`start_one_dispatch`,
-`start_one_dispatch_slab`, `slab_onepack_enabled`, `prefetch_one_dispatch`,
-`finish_one_dispatch`, `tables_from_spec`). `start_one_dispatch` enqueues
-the whole encode on the device stream without waiting:
+`start_one_dispatch_slab`, `start_one_dispatch_multi`,
+`slab_onepack_enabled`, `prefetch_one_dispatch`, `finish_one_dispatch`,
+`tables_from_spec`). The start functions take interleaved or
+channel-planar samples, as the JAX package's do. `start_one_dispatch`
+enqueues the whole encode on the device stream without waiting:
 
     phase 1 (normalize, color, subsample, DCT, quantize, zigzag, P420
     entangle: the kernel pipeline.zigzag_blocks routes to) -> DC DPCM ->
@@ -19,7 +21,8 @@ outputs. DC chains reset at each image start, each image gets its own
 histograms, all 4B tables come from one batched build, and each image gets
 its own packed stream, so the bytes equal B standalone encodes. The pack
 is B scan-pack calls (default) or one slab scan-pack call
-(DMMT_SLAB_ONEPACK=1), as in the JAX package.
+(DMMT_SLAB_ONEPACK=1), as in the JAX package. `start_one_dispatch_multi`
+enqueues B same-geometry images one single-image encode after another.
 
 Word buffers are sized for the worst case (64 words per block + 2), so
 buffers depend only on the image geometry. `prefetch_one_dispatch`
@@ -58,7 +61,7 @@ from .huffman.canonical import flat_code_arrays
 from .huffman.device_tables import device_code_tables_batched, pad_dc_histogram
 from .huffman.spec import SymbolCodeLength
 from .ops.geometry import padded_size
-from .pipeline import row_stack, zigzag_blocks
+from .pipeline import image_layout, interleaved, row_stack, zigzag_blocks
 from .utils.device import as_device
 
 # Worst-case symbol-total bound for exact device table tie-breaking.
@@ -142,11 +145,13 @@ def start_one_dispatch(
     chroma_q: np.ndarray,
     device: torch.device | str = "cuda",
 ) -> OneDispatchState:
-    """Enqueue the full encode of RGB [H, W, 3] samples: a host array is
-    uploaded to `device`, a tensor is encoded where it lies."""
-    height, width = int(pixels.shape[0]), int(pixels.shape[1])
+    """Enqueue the full encode of RGB [H, W, 3] or channel-planar [3, H, W]
+    samples (pipeline.image_layout): a host array is uploaded to `device`
+    as it is, a tensor is encoded where it lies; a planar image is
+    interleaved on the device."""
+    planar, height, width = image_layout(pixels.shape)
     _require_supported(height, width, config.chroma_subsampling)
-    rgb = as_device(pixels, maxval, device)
+    rgb = interleaved(as_device(pixels, maxval, device), planar)
     return _enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
 
 
@@ -160,11 +165,13 @@ def start_one_dispatch_slab(
 ) -> list[OneDispatchState]:
     """Enqueue B same-geometry encodes as one row-stacked slab.
 
-    pixels_stack: [B, H, W, 3] samples. A host array is pre-padded here to
-    the preset's MCU multiple (black) and uploaded; a tensor must already
-    be padded. Returns one OneDispatchState per image; finish each with
+    pixels_stack: [B, H, W, 3] or channel-planar [B, 3, H, W] samples. A
+    host array is pre-padded here to the preset's MCU multiple (black) and
+    uploaded; a tensor must already be padded (pipeline.row_stack).
+    Returns one OneDispatchState per image; finish each with
     finish_one_dispatch as usual, and its bytes equal a standalone encode."""
-    b, height, width = (int(x) for x in pixels_stack.shape[:3])
+    b = int(pixels_stack.shape[0])
+    _, height, width = image_layout(pixels_stack.shape[1:])
     preset = config.chroma_subsampling
     _require_supported(height, width, preset)
     limit = slab_max_blocks()
@@ -175,6 +182,32 @@ def start_one_dispatch_slab(
         )
     rgb = row_stack(pixels_stack, maxval, preset, device)
     return _enqueue(rgb, b, maxval, config, luma_q, chroma_q, onepack=slab_onepack_enabled())
+
+
+def start_one_dispatch_multi(
+    pixels_stack: np.ndarray | torch.Tensor,
+    maxval: int,
+    config: EncoderConfig,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
+    device: torch.device | str = "cuda",
+) -> list[OneDispatchState]:
+    """Enqueue B same-geometry encodes, one after another on the current
+    stream, as the JAX package's group program runs its single-image
+    program once per image.
+
+    pixels_stack: [B, H, W, 3] or channel-planar [B, 3, H, W] samples; a
+    host array is uploaded once, a tensor is encoded where it lies. Each
+    image then gets the single-image enqueue (phase 1, histograms, table
+    build, scan pack), so each state finishes with finish_one_dispatch to
+    the bytes of a standalone start_one_dispatch. The JAX package's
+    DMMT_MULTI_MAX_BLOCKS cap bounds the size of one TPU program for its
+    compiler; the port compiles no program per group and has no such cap."""
+    planar, height, width = image_layout(pixels_stack.shape[1:])
+    _require_supported(height, width, config.chroma_subsampling)
+    stack = interleaved(as_device(pixels_stack, maxval, device), planar)
+    return [_enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
+            for rgb in stack.unbind(0)]
 
 
 def pack_inputs(
@@ -263,11 +296,13 @@ def tables_from_spec(spec_syms, spec_lens, spec_ns):
     )
 
 
-def prefetch_one_dispatch(state: OneDispatchState) -> None:
+def prefetch_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = None) -> None:
     """Enqueue the device->host copy of what finish_one_dispatch reads first
     (total_bits + table spec) right behind the image's own pack, into
     pinned memory, and record an event after it. Idempotent;
-    finish_one_dispatch calls it when the caller did not."""
+    finish_one_dispatch calls it when the caller did not. `config` is
+    accepted for the JAX package's call form and not read (it sized that
+    package's speculative word slice, which the port does not fetch)."""
     if state.small is not None:
         return
     small = torch.cat([
@@ -304,9 +339,11 @@ def _fetch_words(state: OneDispatchState, n_words: int) -> np.ndarray:
     return host.numpy()
 
 
-def finish_one_dispatch(state: OneDispatchState):
+def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = None):
     """Return (scan_bytes, HuffmanTables): wait for the small copy of
-    total_bits + table spec, then copy the needed words.
+    total_bits + table spec, then copy the needed words. `config` is
+    accepted for the JAX package's call form and not read, as in
+    prefetch_one_dispatch.
 
     With DMMT_CHECK_BITS set, the packed bit count is cross-checked against
     the histograms x code lengths prediction (exact_scan_bits)."""

@@ -145,3 +145,10 @@ def dct2d(blocks: torch.Tensor) -> torch.Tensor:
     C X C^T, columns, then rows. The encode runs it on the plane through
     the matmul plane DCT kernel (ops/mxu_dct), whose floats equal these."""
     return matmul_dct_pass(matmul_dct_pass(blocks, 1), 2)
+
+
+def idct2d(coeffs: torch.Tensor) -> torch.Tensor:
+    """Inverse 2-D DCT of float32 [N, 8, 8] coefficients, C^T X C (tests
+    only; the reference's InverseSimple, src/cosine_transform/simple.rs:101-141)."""
+    c = torch.from_numpy(dct_matrix()).to(coeffs.device)
+    return c.T @ coeffs @ c

@@ -2,7 +2,8 @@
 P420 entangle.
 
 Counterpart of dmmt_jpeg_encoder_tpu.ops.geometry for the default
-presets, and of the pair-sum subsample of its ops/fused_phase1. The
+presets and its arbitrary-rate `subsample_generalized`, and of the
+pair-sum subsample of its ops/fused_phase1. The
 Average subsample keeps the reference's summation order
 (reference: src/image/subsampling.rs:108-122): a 2x2 cell sums as
 ((tl + bl) + tr) + br, then / 4.0; a P422 pair as (l + r) / 2.0.
@@ -18,10 +19,12 @@ compiles it, fuses that scale into the cell adds (see ops/fma.py):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import ChromaSubsamplingPreset
+from ..config import ChromaSubsamplingPreset, SubsamplingMethod
+from ..utils.device import device_constant
 from .color import SCALE, f32
 from .fma import fma
 
@@ -76,6 +79,35 @@ def subsample_pairs_scaled(chroma_sum: torch.Tensor, preset: ChromaSubsamplingPr
         cols = fma(chroma_sum[0::2], s, chroma_sum[1::2] * s)
         pairs = cols[:, 0::2] + cols[:, 1::2]
     return pairs * f32(1.0 / (preset.horizontal_rate * preset.vertical_rate))
+
+
+def subsample_generalized(
+    chan: torch.Tensor,
+    horizontal_rate: int,
+    vertical_rate: int,
+    method: SubsamplingMethod,
+) -> torch.Tensor:
+    """Arbitrary-rate subsampling of a float32 [H, W] plane with the
+    reference's border rule (reference: src/image/subsampling.rs:81-135):
+    the output is [ceil(H / v), ceil(W / h)], a partial trailing cell still
+    gives one sample; Average sums the h x v cell column-major (x outer, y
+    inner) with coordinates clamped to the last row and column, and divides
+    by h * v (clamped duplicates included). The encode's presets take
+    subsample_scaled; this is the library-level form (tests only)."""
+    hr, vr = int(horizontal_rate), int(vertical_rate)
+    if hr < 1 or vr < 1:
+        raise ValueError("subsampling rates must be >= 1")
+    h, w = chan.shape
+    if method is SubsamplingMethod.SKIP:
+        return chan[::vr, ::hr]
+    rows = torch.arange(-(-h // vr), device=chan.device) * vr
+    cols = torch.arange(-(-w // hr), device=chan.device) * hr
+    total = None
+    for x in range(hr):
+        for y in range(vr):
+            s = chan[(rows + y).clamp(max=h - 1)][:, (cols + x).clamp(max=w - 1)]
+            total = s if total is None else total + s
+    return total / device_constant(np.array(hr * vr, dtype=np.float32), chan.device)
 
 
 def blockize(plane: torch.Tensor) -> torch.Tensor:

@@ -234,24 +234,47 @@ def run_device_pipeline(
     return DeviceEncodeResult(luma, cb, cr, l_dc, l_ac, c_dc, c_ac)
 
 
+def image_layout(shape) -> tuple[bool, int, int]:
+    """(planar, H, W) of one image's samples, [H, W, 3] interleaved or
+    [3, H, W] channel-planar. As in the JAX package, a shape is planar when
+    its first axis is 3 and its last is not, so [3, H, 3] is interleaved."""
+    planar = int(shape[0]) == 3 and int(shape[2]) != 3
+    height, width = shape[1:3] if planar else shape[0:2]
+    return planar, int(height), int(width)
+
+
+def interleaved(rgb: torch.Tensor, planar: bool) -> torch.Tensor:
+    """Samples [..., 3, H, W] -> [..., H, W, 3] in one copy where they lie;
+    interleaved samples as they are."""
+    return rgb.movedim(-3, -1).contiguous() if planar else rgb
+
+
 def row_stack(
     pixels_stack: np.ndarray | torch.Tensor,
     maxval: int,
     preset: ChromaSubsamplingPreset,
     device: torch.device | str,
 ) -> torch.Tensor:
-    """[B, H, W, 3] samples -> the [B * PH, PW, 3] row stack of the images
-    pre-padded (black) to the preset's MCU multiple, on the device. A host
-    array is padded here and uploaded; a tensor must already be padded."""
-    b, height, width = (int(x) for x in pixels_stack.shape[:3])
+    """[B, H, W, 3] or channel-planar [B, 3, H, W] samples -> the
+    [B * PH, PW, 3] row stack of the images pre-padded (black) to the
+    preset's MCU multiple, on the device. A host array is padded here in
+    its own layout and uploaded as one copy; a tensor must already be
+    padded. A planar stack is interleaved on the device."""
+    b = int(pixels_stack.shape[0])
+    planar, height, width = image_layout(pixels_stack.shape[1:])
     ph, pw = padded_size(height, width, preset)
     if (ph, pw) != (height, width):
         if isinstance(pixels_stack, torch.Tensor):
             raise ValueError(f"a slab tensor must be MCU-padded: {height}x{width} -> {ph}x{pw}")
-        padded = np.zeros((b, ph, pw, 3), dtype=narrow_pixels(pixels_stack[:1], maxval).dtype)
-        padded[:, :height, :width] = narrow_pixels(pixels_stack, maxval)
+        dtype = narrow_pixels(pixels_stack[:1], maxval).dtype
+        if planar:
+            padded = np.zeros((b, 3, ph, pw), dtype=dtype)
+            padded[:, :, :height, :width] = narrow_pixels(pixels_stack, maxval)
+        else:
+            padded = np.zeros((b, ph, pw, 3), dtype=dtype)
+            padded[:, :height, :width] = narrow_pixels(pixels_stack, maxval)
         pixels_stack = padded
-    return as_device(pixels_stack, maxval, device).reshape(b * ph, pw, 3)
+    return interleaved(as_device(pixels_stack, maxval, device), planar).reshape(b * ph, pw, 3)
 
 
 def run_device_pipeline_batch(

@@ -1,0 +1,74 @@
+"""Profiling helpers: a device trace around a block, and host stage timers.
+
+Counterpart of dmmt_jpeg_encoder_tpu.utils.profiling, with the trace taken
+by torch.profiler (CPU activity, and CUDA activity where a card is present)
+in place of jax.profiler. Debugging aids only: the encode path calls
+neither.
+
+Usage:
+    from dmmt_jpeg_encoder_tpu_torch.utils.profiling import trace, stage_timer
+
+    with trace("traces/encode"):           # open trace.json in Perfetto
+        encode_array(pixels)
+
+    with stage_timer() as t:
+        result = run_device_pipeline(...)
+        t.lap("pipeline")
+        ...
+    print(t.report())
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace around a block, written as a Chrome trace to
+    log_dir/trace.json; no trace (and no error) when the profiler cannot
+    start."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    try:
+        profiler.start()
+        started = True
+    except RuntimeError:
+        started = False
+    try:
+        yield
+    finally:
+        if started:
+            profiler.stop()
+            Path(log_dir).mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+class StageTimer:
+    def __init__(self) -> None:
+        self._t0 = time.perf_counter()
+        self.laps: list[tuple[str, float]] = []
+
+    def lap(self, name: str) -> float:
+        now = time.perf_counter()
+        dt = now - self._t0
+        self._t0 = now
+        self.laps.append((name, dt))
+        return dt
+
+    def report(self) -> str:
+        total = sum(dt for _, dt in self.laps)
+        lines = [f"{name}: {dt * 1e3:.1f} ms" for name, dt in self.laps]
+        lines.append(f"total: {total * 1e3:.1f} ms")
+        return " | ".join(lines)
+
+
+@contextlib.contextmanager
+def stage_timer():
+    yield StageTimer()

@@ -210,6 +210,27 @@ def test_port_imports_no_jax():
         "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
         "from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native\n"
         "assert load_native() is not None\n"
+        "del os.environ['DMMT_P1']\n"
+        "from dmmt_jpeg_encoder_tpu_torch import onedispatch as od\n"
+        "from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair\n"
+        "cfg = p.EncoderConfig(); lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)\n"
+        "scan = od.finish_one_dispatch(od.start_one_dispatch(px, 255, cfg, lq, cq, device='cpu'))\n"
+        "planar = np.ascontiguousarray(px.transpose(2, 0, 1))\n"
+        "assert od.finish_one_dispatch(od.start_one_dispatch(planar, 255, cfg, lq, cq, device='cpu'),"
+        " cfg) == scan\n"
+        "group = od.start_one_dispatch_multi(np.stack([planar, planar]), 255, cfg, lq, cq, device='cpu')\n"
+        "assert [od.finish_one_dispatch(s, cfg) for s in group] == [scan, scan]\n"
+        "from dmmt_jpeg_encoder_tpu_torch.debug.jpeg_decoder import decode_jpeg, parse_jpeg\n"
+        "assert decode_jpeg(jpeg).shape == (16, 24, 3) and parse_jpeg(jpeg).width == 24\n"
+        "from dmmt_jpeg_encoder_tpu_torch.huffman import HuffmanDecoder\n"
+        "from dmmt_jpeg_encoder_tpu_torch.huffman.tree import HuffmanTree\n"
+        "assert '(s:2,f:3)' in str(HuffmanTree([(1, 5), (2, 3), (3, 9)]))\n"
+        "from dmmt_jpeg_encoder_tpu_torch.utils.profiling import stage_timer, trace\n"
+        "with stage_timer() as t:\n"
+        "    t.lap('x')\n"
+        "assert 'total:' in t.report()\n"
+        "from dmmt_jpeg_encoder_tpu_torch.ops.dct import idct2d\n"
+        "from dmmt_jpeg_encoder_tpu_torch.ops.geometry import subsample_generalized\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
         " or m == 'dmmt_jpeg_encoder_tpu']\n"
         "assert not bad, bad\n"

@@ -112,6 +112,21 @@ def _pixels(h: int, w: int, maxval: int, seed: int) -> np.ndarray:
     return np.clip(rgb * scale + fine, 0, maxval).astype(np.uint16)
 
 
+# PSNR floor, dB, of the 4k_p420 golden JPEG decoded by the port's
+# debug.jpeg_decoder against the fixture's pixels: the decode measures
+# 32.627 dB (test_torch_tooling.py, on the CPU); chip_smoke.py decodes the
+# card's JPEG and fails below this floor.
+DECODE_PSNR_FLOOR_4K = 32.6
+
+
+def psnr(decoded: np.ndarray, pixels: np.ndarray, maxval: int = 255) -> float:
+    """PSNR in dB of 8-bit decoded samples against source samples of
+    `maxval` (scaled to 8 bits as the encoder normalizes them)."""
+    ref = pixels.astype(np.float64) * (255.0 / maxval)
+    mse = ((decoded.astype(np.float64) - ref) ** 2).mean()
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0**2 / mse))
+
+
 def random_blocks(seed: int, n: int = 600) -> np.ndarray:
     """int16 [n, 64] zigzag blocks with photographic sparsity: a large DC,
     AC magnitudes falling with frequency, long zero runs (ZRLs), some
