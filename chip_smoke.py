@@ -28,8 +28,9 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    of the phase-1 routes (the plane DCT of DMMT_P1=pallas, the matmul
    plane DCT of DMMT_P1=mxu and the SIMPLE and SEPARATED variants, the
    fused matmul phase 1 of DMMT_P1=fused1, the block DCT of the FUSED
-   variant) on the inputs those routes give them, against their plain
-   versions, exactly, with kernel, plain and library times at 4K, and the
+   variant; the two matmul kernels also in their split arms, which
+   DMMT_P1_PREC=high takes) on the inputs those routes give them, against
+   their plain versions, exactly, with kernel, plain and library times at 4K, and the
    color planes those routes make in plain torch against the same on the
    CPU; the scan pack with the sharded encode's `valid` mask (a prefix,
    and no block) on every fixture and the slab scan pack with a [B, N]
@@ -50,9 +51,9 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    built from each case's histograms), for the block histograms (N from 1
    to 389 with the prefixes 0, 1, N - 1 and N, the scan pack's coding
    corners, chroma calls of two segments of unequal and odd lengths) and
-   for phase 1 and the fused matmul phase 1 (1x1 to 333x1001, rows that
-   are no whole 16-byte chunks, each preset, 16-bit samples, maxval 1),
-   for the matmul plane DCT (widths of 1 to 241 groups, one and three
+   for phase 1 and the fused matmul phase 1, both arms (1x1 to 333x1001,
+   rows that are no whole 16-byte chunks, each preset, 16-bit samples,
+   maxval 1), for the matmul plane DCT, both arms (widths of 1 to 241 groups, one and three
    group rows, stacked chroma; saturated groups, DCs on x.5 after / q, a
    table past 8 bits), with its division by 8-bit table entries held
    against __fdiv_rn over every finite float32, and for the emission pack
@@ -82,14 +83,16 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    throughput of each arm beside an encode_array loop; the 4K frame also
    through the CLI, one-dispatch and --one-dispatch off; then every
    phase-1 route (DMMT_P1=pallas, mxu, fused1; the SIMPLE, SEPARATED and
-   FUSED variants) on every single-image fixture, one-dispatch and
-   two-dispatch, and the 16 x 1080p batch as slab and fused_batch=16 under
+   FUSED variants; mxu and fused1 under DMMT_P1_PREC=high) on every
+   single-image fixture, one-dispatch and two-dispatch, and the 16 x 1080p batch as slab and fused_batch=16 under
    DMMT_P1=mxu and FUSED, each held against the route's goldens with the
-   route's kernels counted; warm 4K encode time, one-dispatch and
+   route's kernels counted; SIMPLE under DMMT_P1_PREC=high, which it does
+   not read (its goldens, its unsplit kernel); warm 4K encode time, one-dispatch and
    two-dispatch, and one-dispatch under each route;
    then channel-planar input: the 4K frame and the 7x17 fixture as
    [3, H, W] (a host array, and a tensor on the card) through
-   start_one_dispatch on the default route and under DMMT_P1=fused1, the
+   start_one_dispatch on the default route and under DMMT_P1=fused1 (also
+   with DMMT_P1_PREC=high), the
    odd batch and the 16 x 1080p batch as planar [B, 3, H, W] host stacks
    through start_one_dispatch_slab; start_one_dispatch_multi on 4 x 1080p
    (interleaved and planar host stacks), every state finished in the JAX
@@ -107,7 +110,8 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    device table bound lowered to one symbol (the two-dispatch encode with
    the scan-pack kernel, counted); the 4K frame
    at 2 and 4 shards with the staged pack, DMMT_HIST=pallas, the host scan
-   backend, DMMT_P1=mxu, FUSED (both the default bytes, as in the JAX
+   backend, DMMT_P1=mxu with DMMT_P1_PREC=high, FUSED (both the default
+   bytes, as in the JAX
    package's sharded phase 1) and SIMPLE; the 16 x 1080p batch at 2
    shards as sharded slab, slab one-pack and per image; the CLI with
    --shards 2 (and its refusal of --device cuda on too few cards); the
@@ -167,9 +171,15 @@ KERNEL_INFO.update({
                      "dmmt_jpeg_encoder_tpu/ops/fused.py:102"),
     "probe": ("dmmt_jpeg_encoder_tpu_torch/csrc/probe.cu",
               "dmmt_jpeg_encoder_tpu/utils/capability.py:117"),
+    # the split arms of DMMT_P1_PREC=high (their own launch counts)
+    "plane_dct_mm_high": ("dmmt_jpeg_encoder_tpu_torch/csrc/mxu_dct.cu",
+                          "dmmt_jpeg_encoder_tpu/ops/mxu_dct.py:162"),
+    "phase1_mm_high": ("dmmt_jpeg_encoder_tpu_torch/csrc/fused_phase1.cu",
+                       "dmmt_jpeg_encoder_tpu/ops/fused_phase1.py:238"),
 })
 NEW_KERNELS = ("histogram", "table_lookup", "pack_emissions")
-DCT_KERNELS = ("plane_dct", "plane_dct_mm", "phase1_mm", "block_dct_zz")
+DCT_KERNELS = ("plane_dct", "plane_dct_mm", "phase1_mm", "block_dct_zz", "plane_dct_mm_high",
+               "phase1_mm_high")
 # each phase-1 route's kernel launches per image, slab group or fused chunk
 # (the plane kernels: luma, then Cb and Cr stacked; the block kernel: luma,
 # Cb, Cr)
@@ -177,6 +187,7 @@ ROUTE_LAUNCHES = {
     "p1_pallas": {"plane_dct": 2}, "p1_mxu": {"plane_dct_mm": 2}, "p1_fused1": {"phase1_mm": 1},
     "dct_simple": {"plane_dct_mm": 2}, "dct_separated": {"plane_dct_mm": 2},
     "dct_fused": {"block_dct_zz": 3},
+    "p1_mxu_high": {"plane_dct_mm_high": 2}, "p1_fused1_high": {"phase1_mm_high": 1},
 }
 # Published H100 SXM peaks at a 700 W limit: HBM bytes/s, and float32 (and
 # 32-bit integer) operations/s outside the tensor cores.
@@ -206,6 +217,13 @@ OPS_ARAI_PER_COEFF = 18
 OPS_MATMUL_DCT_PER_COEFF = 34
 OPS_PHASE1_MM_PER_PIXEL = 73
 OPS_BLOCK_DCT_PER_COEFF = 131
+# the split arms (DMMT_P1_PREC=high), per coefficient: per pass the split
+# of the value (two bf16 roundings, a subtract, two conversions back: 5)
+# and three 8-term chains of 8 fmas (16 each) with their two adds; per
+# pixel of the fused matmul phase 1, its count above with those passes in
+# place of the two contractions (luma 106, P420 chroma 2 x 106 / 4)
+OPS_MATMUL_DCT_HIGH_PER_COEFF = 2 * (5 + 3 * 16 + 2) + 4
+OPS_PHASE1_MM_HIGH_PER_PIXEL = 3 + 17 + 106 + 53 + 2
 
 # The multi-process encode (parallel/multihost.py), one process per rank:
 # two gloo processes on card 0, each fixture at num_shards n (n / 2 shards
@@ -437,14 +455,15 @@ def new_kernel_bounds(hist_calls, lookup_calls, emissions, n_words) -> dict:
 
 
 def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
-    """The four phase-1 route kernels on one image's inputs as the routes
+    """The four phase-1 route kernels, the two matmul ones also in their
+    split arms (DMMT_P1_PREC=high), on one image's inputs as the routes
     give them: the plane kernels on the luma plane and on the Cb and Cr
     planes stacked, the fused matmul phase 1 on the pixels, the block
     kernel on the luma, Cb and Cr blocks. Returns ({kernel: (kernel,
     plain, library)} callables, {kernel: bound}). The library calls, timed
     only: one torch.einsum computing the same C X C^T products as the
-    two plane kernels (their DCT, by matmul or by butterflies; no divide,
-    no rounding) and one torch.matmul by M as the block kernel (no
+    plane kernels (their DCT, by matmul, split or not, or by butterflies;
+    no divide, no rounding) and one torch.matmul by M as the block kernel (no
     rounding), TF32 off; none for the fused matmul phase 1."""
     from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset
     from dmmt_jpeg_encoder_tpu_torch.ops.dct import dct_matrix
@@ -481,6 +500,12 @@ def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
                          lambda: [mxu_dct_reference(p, q) for p, q in planes], einsum_dct),
         "phase1_mm": (lambda: fused_phase1(rgb, maxval, lq, cq, preset),
                       lambda: fused_phase1_reference(rgb, maxval, lq, cq, preset), None),
+        "plane_dct_mm_high": (lambda: [plane_dct_quant_mxu(p, q, split=True) for p, q in planes],
+                              lambda: [mxu_dct_reference(p, q, split=True) for p, q in planes],
+                              einsum_dct),
+        "phase1_mm_high": (lambda: fused_phase1(rgb, maxval, lq, cq, preset, split=True),
+                           lambda: fused_phase1_reference(rgb, maxval, lq, cq, preset, split=True),
+                           None),
         "block_dct_zz": (lambda: [fused_dct_quantize_zigzag(b, q) for b, q in blocks],
                          lambda: [fused_reference(b, m) for (b, _), m in zip(blocks, mats)],
                          lambda: [torch.matmul(b.reshape(-1, 64), m) for (b, _), m in zip(blocks, mats)]),
@@ -493,6 +518,9 @@ def dct_kernel_cases(torch, rgb, maxval: int, luma_q, chroma_q, preset):
         "plane_dct_mm": bound(n_plane * 6 + 3 * 64 * 4, n_plane * OPS_MATMUL_DCT_PER_COEFF),
         "phase1_mm": bound(rgb.numel() * rgb.element_size() + n_coeff * 2 + 3 * 64 * 4,
                            rgb.numel() // 3 * OPS_PHASE1_MM_PER_PIXEL),
+        "plane_dct_mm_high": bound(n_plane * 6 + 4 * 64 * 4, n_plane * OPS_MATMUL_DCT_HIGH_PER_COEFF),
+        "phase1_mm_high": bound(rgb.numel() * rgb.element_size() + n_coeff * 2 + 4 * 64 * 4,
+                                rgb.numel() // 3 * OPS_PHASE1_MM_HIGH_PER_PIXEL),
         "block_dct_zz": bound(n_block * 6 + 3 * 64 * 64 * 4, n_block * OPS_BLOCK_DCT_PER_COEFF),
     }
     return cases, bounds
@@ -988,19 +1016,24 @@ def main() -> int:
         rgb = torch.from_numpy(phase1_edge_pixels(h, w, maxval)).to(dev)
         want = phase1_zigzag_blocks(rgb, maxval, lq, cq, preset)
         want_mm = fused_phase1_reference(rgb, maxval, lq, cq, preset)
+        want_high = fused_phase1_reference(rgb, maxval, lq, cq, preset, split=True)
         for label, xin in (("", rgb), (" unaligned", unaligned(rgb))):
             what = f"edge {h}x{w} {pname} maxval {maxval}{label}"
             check_equal(torch, errs, "phase1", what, fused_arai_phase1(xin, maxval, lq, cq, preset), want)
             check_equal(torch, errs, "phase1_mm", what, fused_phase1(xin, maxval, lq, cq, preset), want_mm)
-    log(f"edge cases: phase1 == plain and phase1_mm == plain on {len(PHASE1_EDGE_CASES)} "
+            check_equal(torch, errs, "phase1_mm_high", what,
+                        fused_phase1(xin, maxval, lq, cq, preset, split=True), want_high)
+    log(f"edge cases: phase1, phase1_mm and phase1_mm_high == plain on {len(PHASE1_EDGE_CASES)} "
         "(H, W, preset, maxval) cases, also from unaligned views")
     for h, w in PLANE_MM_EDGE_SHAPES:
         plane_np, q_np = plane_mm_edge_inputs(h, w)
         plane, q = torch.from_numpy(plane_np).to(dev), torch.from_numpy(q_np).to(dev)
-        want = mxu_dct_reference(plane, q)
+        want, want_high = mxu_dct_reference(plane, q), mxu_dct_reference(plane, q, split=True)
         for label, xin in (("", plane), (" unaligned", unaligned(plane))):
             check_equal(torch, errs, "plane_dct_mm", f"edge {h}x{w}{label}",
                         plane_dct_quant_mxu(xin, q), want)
+            check_equal(torch, errs, "plane_dct_mm_high", f"edge {h}x{w}{label}",
+                        plane_dct_quant_mxu(xin, q, split=True), want_high)
     # the division the kernel uses for 8-bit tables, over every finite x
     t0 = time.perf_counter()
     _, coefficients = mxu_division_check(dev)
@@ -1010,7 +1043,8 @@ def main() -> int:
                              f"{quotients} quotients with |x| >= 0.25 differ from __fdiv_rn's")
     log(f"plane_dct_mm division by q in 1..255: every finite x's coefficient, and every quotient "
         f"with |x| >= 0.25, equal __fdiv_rn's ({time.perf_counter() - t0:.1f} s)")
-    log(f"edge shapes: plane_dct_mm == plain on {len(PLANE_MM_EDGE_SHAPES)} (H, W) planes "
+    log(f"edge shapes: plane_dct_mm and plane_dct_mm_high == plain on {len(PLANE_MM_EDGE_SHAPES)} "
+        "(H, W) planes "
         "(saturated groups, DCs on x.5 after / q, a table past 8 bits), also from unaligned views")
     emit_arms = {}
     for case in EMISSION_PACK_EDGE_CASES:
@@ -1240,6 +1274,22 @@ def main() -> int:
                         raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
                     log(f"{route}: {name} {label}: every frame == JAX golden")
 
+    # DMMT_P1_PREC=high is not read by the variants: SIMPLE keeps its bytes
+    # and its unsplit kernel
+    simple = {name: dataclasses.replace(c, dct_variant=port.DCTVariant.SIMPLE)
+              for name, c in configs.items()}
+    with route_env("dct_simple"), scoped_env({"DMMT_P1_PREC": "high"}):
+        outputs = run_path("dct_simple under DMMT_P1_PREC=high: single-image fixtures", lambda: {
+            name: port.encode_array(images[name], f["maxval"], simple[name], device=dev)
+            for name, f in FIXTURES.items()
+        }, {**none_new, "phase1": 0, "plane_dct_mm": 2 * n_fix, "block_hist": None, "scan_pack": None,
+            "scan_pack_slab": 0})
+    for name, jpeg in outputs.items():
+        if sha256(jpeg) != route_goldens["dct_simple"][name]["jpeg_sha256"]:
+            raise AssertionError(f"{name} dct_simple under DMMT_P1_PREC=high: cuda JPEG differs from "
+                                 "the JAX golden")
+    log("dct_simple under DMMT_P1_PREC=high: every fixture's cuda bytes == the JAX golden")
+
     # --- 4b. channel-planar input, start_one_dispatch_multi, the decoder ----
     def jpegs_of(states, cfg, shape):
         """Finish states in the JAX package's call form -> JPEG bytes."""
@@ -1263,7 +1313,8 @@ def main() -> int:
         cfg = configs[name]
         lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
         planar = np.ascontiguousarray(px.transpose(2, 0, 1))
-        for route, counts in ((None, {"phase1": 1}), ("p1_fused1", ROUTE_LAUNCHES["p1_fused1"])):
+        for route, counts in ((None, {"phase1": 1}), ("p1_fused1", ROUTE_LAUNCHES["p1_fused1"]),
+                              ("p1_fused1_high", ROUTE_LAUNCHES["p1_fused1_high"])):
             want = goldens[name] if route is None else route_goldens[route][name]
             for layout, pixels in (("planar host array", planar),
                                    ("planar tensor on the card", torch.from_numpy(planar).to(dev))):
@@ -1387,7 +1438,8 @@ def main() -> int:
              None),
             ("host scan backend", {}, {"scan_backend": "host"}, sharded_launches(n, 1, 1, pack="host"),
              None),
-            ("DMMT_P1=mxu (ignored: the default bytes)", {"DMMT_P1": "mxu"}, {},
+            ("DMMT_P1=mxu, DMMT_P1_PREC=high (ignored: the default bytes)",
+             {"DMMT_P1": "mxu", "DMMT_P1_PREC": "high"}, {},
              sharded_launches(n, 1, 1), None),
             ("FUSED (the Arai phase 1: the default bytes)", {}, {"dct_variant": port.DCTVariant.FUSED},
              sharded_launches(n, 1, 1), None),

@@ -18,7 +18,8 @@ packer, `--dct` selects the DCT variant and `--shards N` splits the image
 over N devices, as in the JAX CLI. With `--shards`, `--device` may list
 one device per shard, comma-separated (`cuda:0,cuda:0` puts two shards on
 one card); a single CUDA device means N consecutive cards. An encode that
-cannot run (too few cards, DMMT_P1_PREC=high) exits with code 1.
+cannot run (too few cards, a DMMT_P1_PREC other than high or highest)
+exits with code 1.
 """
 
 from __future__ import annotations
@@ -142,7 +143,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         jpeg = encode_ppm_image(image, config, use_native=not args.no_native, device=device)
         Path(args.output_file).write_bytes(jpeg)
-    except (NotImplementedError, ValueError) as e:  # DMMT_P1_PREC=high, too few cards
+    except ValueError as e:  # DMMT_P1_PREC neither high nor highest, too few cards
         print(f"error: {e}", file=sys.stderr)
         return 1
     except OSError as e:

@@ -14,6 +14,10 @@
 //   fused1, the SIMPLE and SEPARATED variants; ops/dct.contract8): term n
 //   goes to accumulator n mod 4, the first term of each a plain product,
 //   combined as (a0 + a1) + (a2 + a3).
+// - split8 and contract8_split: the bf16x3 contraction of DMMT_P1_PREC=high
+//   (ops/mxu_dct.dot_p1) for the matmul DCTs of DMMT_P1=mxu and fused1;
+//   contract_row: one output of either contraction, the weights from the
+//   launch's parameters (mxu_dct.cu, fused_phase1.cu).
 // - round_half_away / round_away, div_by_int: the quantizer's rounding and
 //   the plane DCTs' division by an 8-bit table entry (plane_dct.cu and
 //   mxu_dct.cu compile the same source).
@@ -23,6 +27,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +97,75 @@ __device__ __forceinline__ float contract8(const float (&x)[8], const float* w) 
     a2 = fmadd(x[6], w[6], a2);
     a3 = fmadd(x[7], w[7], a3);
     return add(add(a0, a1), add(a2, a3));
+}
+
+// Eight values split into bf16 halves, held as floats: hi = bf16(x), lo =
+// bf16(x - hi) (x - hi is exact), both rounded to nearest even.
+struct Split8 {
+    float hi[8];
+    float lo[8];
+};
+
+__device__ __forceinline__ float bf16_rn(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ Split8 split8(const float (&x)[8]) {
+    Split8 s;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+        s.hi[n] = bf16_rn(x[n]);
+        s.lo[n] = bf16_rn(sub(x[n], s.hi[n]));
+    }
+    return s;
+}
+
+// sum_n x[n] * w[n] over eight bf16 values held as floats, in the order of
+// XLA's CPU dot of bf16 operands with a float32 result on a host with
+// AVX512-BF16 (VDPBF16PS adds the odd product of each pair, then the even
+// one): from 0, n = 1, 0, 3, 2, 5, 4, 7, 6. A bf16 x bf16 product is exact
+// in float32, so each fma rounds only its add. VDPBF16PS flushes denormal
+// inputs and results to zero, which CUDA's fma (the library is built
+// without -ftz) does not; the two differ only where a value falls below
+// 2^-126. None does here: C's entries lie in 0.097..0.49 and their lo
+// halves in 3.7e-5..9.5e-4, and the planes hold level-shifted samples in
+// units of 1 / maxval (maxval < 2^16) and their 8-term sums, whose lo
+// halves are 0 or many binades above 2^-126.
+__device__ __forceinline__ float chain8_pairs(const float* x, const float* w) {
+    float s = 0.0f;
+#pragma unroll
+    for (int p = 0; p < 8; p += 2) {
+        s = fmadd(x[p + 1], w[p + 1], s);
+        s = fmadd(x[p], w[p], s);
+    }
+    return s;
+}
+
+// hi(x).hi(w) + (lo(x).hi(w) + hi(x).lo(w)): ops/mxu_dct.dot_p1's
+// contraction of one output (IEEE addition is commutative, so it is the
+// same sum whichever operand is the matrix)
+__device__ __forceinline__ float contract8_split(const Split8& x, const float* w_hi, const float* w_lo) {
+    return add(chain8_pairs(x.hi, w_hi), add(chain8_pairs(x.lo, w_hi), chain8_pairs(x.hi, w_lo)));
+}
+
+// Output `row` of a matmul DCT pass over x, the weights from the launch's
+// parameters m: C [8][8] (row k = frequency) in m.c, contracted by
+// contract8; or, where M::SPLIT (DMMT_P1_PREC=high), C's bf16 halves in
+// m.hi and m.lo, contracted by contract8_split with x's halves xs.
+template <typename M>
+__device__ __forceinline__ float contract_row(const float (&x)[8], const Split8& xs, const M& m, int row) {
+    float w[8];
+    if constexpr (M::SPLIT) {
+        float lo[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+            w[n] = m.hi[row * 8 + n];
+            lo[n] = m.lo[row * 8 + n];
+        }
+        return contract8_split(xs, w, lo);
+    } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) w[n] = m.c[row * 8 + n];
+        return contract8(x, w);
+    }
 }
 
 // sign(x) * floor(|x| + 0.5), then int16

@@ -45,6 +45,16 @@
 // and __fmaf_rn exactly where XLA fuses, one reciprocal of maxval by
 // __fdiv_rn, the quantizing division by __fdiv_rn; / 4 and / 2 are exact
 // multiplies by 0.25 and 0.5.
+//
+// DMMT_P1_PREC=high (ops/mxu_dct.dot_p1) is a template arm on the type of
+// the constants parameter: SplitConsts holds C's bf16 halves, rounded on
+// the host (ops/mxu_dct.DCT_SPLIT), and both passes split their eight
+// values (dct8.cuh split8) and sum each output as three chains in the pair
+// order of XLA's CPU bf16 dot (contract8_split), on the luma and the
+// subsampled chroma blocks alike. No tensor cores: the order of their bf16
+// sums is not specified. The color math, the pair sums, the division and
+// the rounding are the other arm's; the split arm does about three times
+// its DCT arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,27 +70,27 @@ using namespace dmmt;
 // The color constants (ops/fused_arai.kernel_constants) and the DCT matrix
 // C [8][8] (row k = frequency), passed by value.
 struct Consts {
+    static constexpr bool SPLIT = false;
     float k[K_COUNT];
     float c[64];
 };
 
-// sum_n x[n] * C[row][n] in contract8's order, the weights read from the
-// launch's parameters
-__device__ __forceinline__ float contract_row(const float (&x)[8], const Consts& p, int row) {
-    float w[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) w[n] = p.c[row * 8 + n];
-    return contract8(x, w);
-}
+// The same with C's bf16 halves (DMMT_P1_PREC=high).
+struct SplitConsts {
+    static constexpr bool SPLIT = true;
+    float k[K_COUNT];
+    float hi[64];
+    float lo[64];
+};
 
 __device__ __forceinline__ unsigned pack2(short lo, short hi) {
     return static_cast<unsigned short>(lo) | (static_cast<unsigned>(static_cast<unsigned short>(hi)) << 16);
 }
 
-template <int HR, int VR, typename T>
+template <int HR, int VR, typename T, typename P>
 __global__ void __launch_bounds__(STRIP_THREADS) phase1_mm_kernel(
     const T* __restrict__ rgb, int height, int width, int padded_w, int strips_x, float maxval,
-    const __grid_constant__ Consts p, const float* __restrict__ q_luma,
+    const __grid_constant__ P p, const float* __restrict__ q_luma,
     const float* __restrict__ q_chroma, short* __restrict__ out_y, short* __restrict__ out_cb,
     short* __restrict__ out_cr) {
     using G = Strip<HR, VR, T>;
@@ -164,8 +174,10 @@ __global__ void __launch_bounds__(STRIP_THREADS) phase1_mm_kernel(
         float x[8];
 #pragma unroll
         for (int y = 0; y < 8; ++y) x[y] = s_blk[blk][y][u];
+        Split8 split;
+        if constexpr (P::SPLIT) split = split8(x);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) s_blk[blk][k][u] = contract_row(x, p, k);
+        for (int k = 0; k < 8; ++k) s_blk[blk][k][u] = contract_row(x, split, p, k);
     }
     __syncthreads();
 
@@ -190,20 +202,23 @@ __global__ void __launch_bounds__(STRIP_THREADS) phase1_mm_kernel(
         float x[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u) x[u] = s_blk[blk][v][u];
+        Split8 split;
+        if constexpr (P::SPLIT) split = split8(x);
         unsigned w[4];
 #pragma unroll
         for (int u = 0; u < 8; u += 2) {
-            const short lo = round_half_away(__fdiv_rn(contract_row(x, p, u), luma ? ql[u] : qc[u]));
+            const short lo =
+                round_half_away(__fdiv_rn(contract_row(x, split, p, u), luma ? ql[u] : qc[u]));
             const short hi =
-                round_half_away(__fdiv_rn(contract_row(x, p, u + 1), luma ? ql[u + 1] : qc[u + 1]));
+                round_half_away(__fdiv_rn(contract_row(x, split, p, u + 1), luma ? ql[u + 1] : qc[u + 1]));
             w[u / 2] = pack2(lo, hi);
         }
         *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
     }
 }
 
-template <int HR, int VR, typename T>
-cudaError_t launch(const void* rgb, int height, int width, float maxval, const Consts& p,
+template <int HR, int VR, typename T, typename P>
+cudaError_t launch(const void* rgb, int height, int width, float maxval, const P& p,
                    const float* q_luma, const float* q_chroma, short* out_y, short* out_cb,
                    short* out_cr, cudaStream_t stream) {
     using G = Strip<HR, VR, T>;
@@ -215,15 +230,15 @@ cudaError_t launch(const void* rgb, int height, int width, float maxval, const C
     const int strips_x = (mcus_x + G::S - 1) / G::S;
     const long long grid = static_cast<long long>(strips_x) * mcus_y;
     if (grid < 1 || grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-    phase1_mm_kernel<HR, VR, T><<<static_cast<unsigned>(grid), STRIP_THREADS, 0, stream>>>(
+    phase1_mm_kernel<HR, VR, T, P><<<static_cast<unsigned>(grid), STRIP_THREADS, 0, stream>>>(
         static_cast<const T*>(rgb), height, width, mcus_x * G::MW, strips_x, maxval, p, q_luma,
         q_chroma, out_y, out_cb, out_cr);
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t dispatch_rates(int hr, int vr, const void* rgb, int height, int width, float maxval,
-                           const Consts& p, const float* q_luma, const float* q_chroma,
+                           const P& p, const float* q_luma, const float* q_chroma,
                            short* out_y, short* out_cb, short* out_cr, cudaStream_t stream) {
     if (hr == 2 && vr == 2)
         return launch<2, 2, T>(rgb, height, width, maxval, p, q_luma, q_chroma, out_y, out_cb,
@@ -235,6 +250,23 @@ cudaError_t dispatch_rates(int hr, int vr, const void* rgb, int height, int widt
         return launch<1, 1, T>(rgb, height, width, maxval, p, q_luma, q_chroma, out_y, out_cb,
                                out_cr, stream);
     return cudaErrorInvalidValue;
+}
+
+// the element type's arm of dispatch_rates
+template <typename P>
+int dispatch(const void* rgb, int elem_bytes, int height, int width, int hr, int vr, float maxval,
+             const P& p, const float* q_luma, const float* q_chroma, short* out_y, short* out_cb,
+             short* out_cr, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (elem_bytes == 1)
+        err = dispatch_rates<uint8_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
+                                      out_y, out_cb, out_cr, s);
+    else if (elem_bytes == 2)
+        err = dispatch_rates<uint16_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
+                                       out_y, out_cb, out_cr, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -254,14 +286,23 @@ extern "C" int dmmt_phase1_mm(const void* rgb, int elem_bytes, int height, int w
     Consts p;
     memcpy(p.k, consts_host, sizeof(p.k));
     memcpy(p.c, c_host, sizeof(p.c));
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaErrorInvalidValue;
-    if (elem_bytes == 1)
-        err = dispatch_rates<uint8_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
-                                      out_y, out_cb, out_cr, s);
-    else if (elem_bytes == 2)
-        err = dispatch_rates<uint16_t>(hr, vr, rgb, height, width, maxval, p, q_luma, q_chroma,
-                                       out_y, out_cb, out_cr, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    return dispatch(rgb, elem_bytes, height, width, hr, vr, maxval, p, q_luma, q_chroma, out_y,
+                    out_cb, out_cr, stream);
+}
+
+// The same with DMMT_P1_PREC=high's split contractions: c_hi_host and
+// c_lo_host, float32 [8, 8] in host memory, are C's bf16 halves
+// (ops/mxu_dct.DCT_SPLIT).
+extern "C" int dmmt_phase1_mm_split(const void* rgb, int elem_bytes, int height, int width, int hr,
+                                    int vr, float maxval, const float* consts_host,
+                                    const float* c_hi_host, const float* c_lo_host,
+                                    const float* q_luma, const float* q_chroma, short* out_y,
+                                    short* out_cb, short* out_cr, void* stream) {
+    if (!consts_host || !c_hi_host || !c_lo_host) return static_cast<int>(cudaErrorInvalidValue);
+    SplitConsts p;
+    memcpy(p.k, consts_host, sizeof(p.k));
+    memcpy(p.hi, c_hi_host, sizeof(p.hi));
+    memcpy(p.lo, c_lo_host, sizeof(p.lo));
+    return dispatch(rgb, elem_bytes, height, width, hr, vr, maxval, p, q_luma, q_chroma, out_y,
+                    out_cb, out_cr, stream);
 }

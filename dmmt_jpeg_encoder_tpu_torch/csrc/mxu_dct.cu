@@ -27,8 +27,17 @@
 //   setup), so they are in flight while q is read.
 // - The DCT matrix C comes as a launch parameter (__grid_constant__), so
 //   both contractions read their weights as constant-bank operands, with
-//   no loads. It stays an argument of the C entry point, so that a split
-//   of C into bf16 halves (DMMT_P1_PREC=high) can pass its own.
+//   no loads.
+// - DMMT_P1_PREC=high (ops/mxu_dct.dot_p1, the JAX reference's bf16x3
+//   split) is a template arm on the type of that parameter: SplitMatrix
+//   holds C's bf16 halves, rounded on the host (ops/mxu_dct.DCT_SPLIT).
+//   Each thread splits its plane values before the column pass and its
+//   rows before the row pass (dct8.cuh split8) and computes each output
+//   as three chains in the pair order of XLA's CPU bf16 dot
+//   (contract8_split). No tensor cores: the order of their bf16 sums is
+//   not specified, and these bits need this one. The arm does about three
+//   times the arithmetic of the other, with the same layout, division and
+//   rounding.
 // - q stays in device memory (the wrapper's table is a device tensor, of
 //   uint8 as the encoder's tables come, or float32); each CTA reads it once
 //   into shared memory as float32, with its reciprocals 1 / q
@@ -62,21 +71,20 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // The DCT matrix C [8][8] (row k = frequency), passed by value.
 struct Matrix {
+    static constexpr bool SPLIT = false;
     float c[64];
+};
+
+// C's bf16 halves (DMMT_P1_PREC=high), passed by value.
+struct SplitMatrix {
+    static constexpr bool SPLIT = true;
+    float hi[64];
+    float lo[64];
 };
 
 // q and 1 / q in shared memory, row v at v * 8 + (v / 4) * 4: the two rows
 // a thread pair reads at once (v and v + 4) sit in different banks
 __device__ __forceinline__ int q_index(int v) { return v * 8 + (v / 4) * 4; }
-
-// sum_n x[n] * C[row][n] in contract8's order, the weights from the launch's
-// parameters
-__device__ __forceinline__ float contract_row(const float (&x)[8], const Matrix& m, int row) {
-    float w[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) w[n] = m.c[row * 8 + n];
-    return contract8(x, w);
-}
 
 __device__ __forceinline__ unsigned pack2(short lo, short hi) {
     return static_cast<unsigned short>(lo) | (static_cast<unsigned>(static_cast<unsigned short>(hi)) << 16);
@@ -84,8 +92,8 @@ __device__ __forceinline__ unsigned pack2(short lo, short hi) {
 
 // The row pass of the thread's rows v = 4h + i (rows[i]: the whole row
 // after the column pass), / q, rounding, one 16-byte store per row.
-template <bool FAST>
-__device__ __forceinline__ void row_pass(const float (&rows)[4][8], int h, const Matrix& m,
+template <bool FAST, typename M>
+__device__ __forceinline__ void row_pass(const float (&rows)[4][8], int h, const M& m,
                                          const float* s_q, const float* s_rq, short* dst, int width) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -100,13 +108,15 @@ __device__ __forceinline__ void row_pass(const float (&rows)[4][8], int h, const
             rq[0] = ra.x; rq[1] = ra.y; rq[2] = ra.z; rq[3] = ra.w;
             rq[4] = rb.x; rq[5] = rb.y; rq[6] = rb.z; rq[7] = rb.w;
         }
+        Split8 split;
+        if constexpr (M::SPLIT) split = split8(rows[i]);
         unsigned w[4];
 #pragma unroll
         for (int u = 0; u < 8; u += 2) {
             short s[2];
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
-                const float t = contract_row(rows[i], m, u + k);
+                const float t = contract_row(rows[i], split, m, u + k);
                 s[k] = round_away(FAST ? div_by_int(t, q[u + k], rq[u + k]) : __fdiv_rn(t, q[u + k]));
             }
             w[u / 2] = pack2(s[0], s[1]);
@@ -115,10 +125,10 @@ __device__ __forceinline__ void row_pass(const float (&rows)[4][8], int h, const
     }
 }
 
-template <bool VEC>
+template <bool VEC, typename M>
 __global__ void __launch_bounds__(THREADS) plane_dct_mm_kernel(
     const float* __restrict__ plane, int width, int groups_x, long long n_groups,
-    const __grid_constant__ Matrix m, const void* __restrict__ q, int q_uint8,
+    const __grid_constant__ M m, const void* __restrict__ q, int q_uint8,
     short* __restrict__ out) {
     __shared__ __align__(16) float s_q[68];
     __shared__ __align__(16) float s_rq[68];
@@ -167,8 +177,10 @@ __global__ void __launch_bounds__(THREADS) plane_dct_mm_kernel(
         float col[8];
 #pragma unroll
         for (int y = 0; y < 8; ++y) col[y] = x[y][j];
+        Split8 split;
+        if constexpr (M::SPLIT) split = split8(col);
 #pragma unroll
-        for (int v = 0; v < 8; ++v) x[v][j] = contract_row(col, m, v);
+        for (int v = 0; v < 8; ++v) x[v][j] = contract_row(col, split, m, v);
     }
 
     // the pair swaps halves: thread h keeps rows 4h..4h+3 of its columns and
@@ -219,6 +231,24 @@ __global__ void __launch_bounds__(256) div_check_kernel(unsigned lo_bits, unsign
     atomicAdd(counts + 1, coefficients);
 }
 
+template <typename M>
+cudaError_t launch(const float* plane, int height, int width, const M& m, const void* q, int q_uint8,
+                   short* out, cudaStream_t s) {
+    if (height % 8 || width % 8 || height <= 0 || width <= 0) return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(out) & 15) return cudaErrorMisalignedAddress;
+    const int groups_x = width / 8;
+    const long long n_groups = static_cast<long long>(height / 8) * groups_x;
+    const long long grid = (2 * n_groups + THREADS - 1) / THREADS;
+    if (grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(plane) & 15) == 0)
+        plane_dct_mm_kernel<true, M><<<static_cast<unsigned>(grid), THREADS, 0, s>>>(
+            plane, width, groups_x, n_groups, m, q, q_uint8, out);
+    else
+        plane_dct_mm_kernel<false, M><<<static_cast<unsigned>(grid), THREADS, 0, s>>>(
+            plane, width, groups_x, n_groups, m, q, q_uint8, out);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // counts: uint64 [2], zeroed; see div_check_kernel.
@@ -236,21 +266,23 @@ extern "C" int dmmt_plane_dct_mm_div_check(unsigned lo_bits, unsigned hi_bits,
 // out: int16 [height, width], 16-byte aligned.
 extern "C" int dmmt_plane_dct_mm(const float* plane, int height, int width, const float* c_host,
                                  const void* q, int q_uint8, short* out, void* stream) {
-    if (height % 8 || width % 8 || height <= 0 || width <= 0 || !c_host)
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (reinterpret_cast<uintptr_t>(out) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+    if (!c_host) return static_cast<int>(cudaErrorInvalidValue);
     Matrix m;
     for (int i = 0; i < 64; ++i) m.c[i] = c_host[i];
-    const int groups_x = width / 8;
-    const long long n_groups = static_cast<long long>(height / 8) * groups_x;
-    const long long grid = (2 * n_groups + THREADS - 1) / THREADS;
-    if (grid > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if ((reinterpret_cast<uintptr_t>(plane) & 15) == 0)
-        plane_dct_mm_kernel<true><<<static_cast<unsigned>(grid), THREADS, 0, s>>>(
-            plane, width, groups_x, n_groups, m, q, q_uint8, out);
-    else
-        plane_dct_mm_kernel<false><<<static_cast<unsigned>(grid), THREADS, 0, s>>>(
-            plane, width, groups_x, n_groups, m, q, q_uint8, out);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch(plane, height, width, m, q, q_uint8, out, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with DMMT_P1_PREC=high's split contractions: c_hi_host and
+// c_lo_host, float32 [8, 8] in host memory, are C's bf16 halves
+// (ops/mxu_dct.DCT_SPLIT).
+extern "C" int dmmt_plane_dct_mm_split(const float* plane, int height, int width,
+                                       const float* c_hi_host, const float* c_lo_host, const void* q,
+                                       int q_uint8, short* out, void* stream) {
+    if (!c_hi_host || !c_lo_host) return static_cast<int>(cudaErrorInvalidValue);
+    SplitMatrix m;
+    for (int i = 0; i < 64; ++i) {
+        m.hi[i] = c_hi_host[i];
+        m.lo[i] = c_lo_host[i];
+    }
+    return static_cast<int>(launch(plane, height, width, m, q, q_uint8, out, static_cast<cudaStream_t>(stream)));
 }

@@ -24,8 +24,8 @@ The device is explicit: every public function takes `device` (default
 "cuda"). Nothing probes for a card; `device="cpu"` runs the kernels'
 plain versions, for the tests. A sharded encode takes a list of devices,
 one per shard, which may repeat a device (parallel.sharding.shard_devices).
-Every DCT variant and DMMT_P1 phase-1 route runs (pipeline.zigzag_blocks);
-DMMT_P1_PREC=high raises NotImplementedError (ROADMAP A11).
+Every DCT variant and DMMT_P1 phase-1 route runs (pipeline.zigzag_blocks),
+the mxu and fused1 routes at either DMMT_P1_PREC (ops/mxu_dct).
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ LAUNCHES: dict[str, int] = {
     "phase1": 0, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
     "histogram": 0, "table_lookup": 0, "pack_emissions": 0,
     "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0, "probe": 0,
+    "plane_dct_mm_high": 0, "phase1_mm_high": 0,
 }
 
 _P = ctypes.c_void_p
@@ -59,8 +60,11 @@ _SIGNATURES = {
     "dmmt_pack_emissions": (_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P),
     "dmmt_plane_dct": (_P, _I, _I, _P, _P, _I, _P, _P),
     "dmmt_plane_dct_mm": (_P, _I, _I, _P, _P, _I, _P, _P),
+    "dmmt_plane_dct_mm_split": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "dmmt_plane_dct_mm_div_check": (ctypes.c_uint, ctypes.c_uint, _P, _P),
     "dmmt_phase1_mm": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P),
+    "dmmt_phase1_mm_split": (_P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P),
     "dmmt_block_dct_zz": (_P, _LL, _P, _P, _P),
     "dmmt_probe": (_P, _P, _I, _P),
 }

@@ -8,7 +8,9 @@ sums of ops/color, the pair-sum subsample of
 geometry.subsample_pairs_scaled, then the matmul DCT of ops/mxu_dct and
 quantize. Not Arai-bit-exact: the route is opt-in, as in the JAX package.
 The CUDA kernel is csrc/fused_phase1.cu; the plain version is
-`fused_phase1_reference`. The JAX package's tile width knob
+`fused_phase1_reference`. `split` selects DMMT_P1_PREC=high's DCT
+contractions (ops/mxu_dct.dot_p1) on all three planes: the kernel's split
+arm, and the plain version's. The JAX package's tile width knob
 DMMT_FUSED1_TILEW shapes only its TPU grid (outputs do not depend on it)
 and has no counterpart here.
 
@@ -25,10 +27,9 @@ import torch.nn.functional as F
 from ..config import ChromaSubsamplingPreset
 from ..kernels import build
 from .color import chroma_sums, f32, luma
-from .dct import dct_matrix
 from .fused_arai import kernel_constants
 from .geometry import padded_size, subsample_pairs_scaled
-from .mxu_dct import mxu_dct_reference
+from .mxu_dct import DCT_MATRIX, DCT_SPLIT, mxu_dct_reference
 
 
 def fused_phase1_reference(
@@ -37,6 +38,7 @@ def fused_phase1_reference(
     luma_q: torch.Tensor,
     chroma_q: torch.Tensor,
     preset: ChromaSubsamplingPreset,
+    split: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version: integer RGB [H, W, 3] (unpadded) -> (luma int16
     [PH, PW], cb and cr int16 [PH / v, PW / h]) coefficient planes of the
@@ -46,8 +48,8 @@ def fused_phase1_reference(
     inv = f32(np.float32(1.0) / np.float32(maxval))
     norm = F.pad(rgb.to(torch.float32) * inv, (0, 0, 0, pw - w, 0, ph - h))
     r, g, b = norm.unbind(-1)
-    return (mxu_dct_reference(luma(r, g, b), luma_q),
-            *(mxu_dct_reference(subsample_pairs_scaled(c, preset), chroma_q)
+    return (mxu_dct_reference(luma(r, g, b), luma_q, split),
+            *(mxu_dct_reference(subsample_pairs_scaled(c, preset), chroma_q, split)
               for c in chroma_sums(r, g, b)))
 
 
@@ -57,11 +59,12 @@ def fused_phase1(
     luma_q: torch.Tensor,
     chroma_q: torch.Tensor,
     preset: ChromaSubsamplingPreset,
+    split: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uint8/uint16 RGB [H, W, 3] (unpadded) + raster [64] tables -> the
     coefficient planes of fused_phase1_reference."""
     if rgb.device.type == "cpu":
-        return fused_phase1_reference(rgb, maxval, luma_q, chroma_q, preset)
+        return fused_phase1_reference(rgb, maxval, luma_q, chroma_q, preset, split)
     if rgb.device.type != "cuda":
         raise ValueError(f"phase1_mm kernel needs a CUDA tensor, got {rgb.device}")
     if rgb.dtype not in (torch.uint8, torch.uint16) or rgb.ndim != 3 or rgb.shape[2] != 3:
@@ -75,14 +78,18 @@ def fused_phase1(
     out_cb = torch.empty((ph // vr, pw // hr), dtype=torch.int16, device=dev)
     out_cr = torch.empty_like(out_cb)
     # host arrays: the C entry point copies them into the launch's parameters
-    consts, c = kernel_constants(), dct_matrix()
+    consts = kernel_constants()
     qy = luma_q.to(device=dev, dtype=torch.float32).contiguous()
     qc = chroma_q.to(device=dev, dtype=torch.float32).contiguous()
-    err = build.load().dmmt_phase1_mm(
-        rgb.data_ptr(), rgb.element_size(), h, w, hr, vr, float(maxval), consts.ctypes.data,
-        c.ctypes.data, qy.data_ptr(), qc.data_ptr(), out_y.data_ptr(), out_cb.data_ptr(),
-        out_cr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(err, "dmmt_phase1_mm")
-    build.LAUNCHES["phase1_mm"] += 1
+    args = (rgb.data_ptr(), rgb.element_size(), h, w, hr, vr, float(maxval), consts.ctypes.data)
+    outs = (qy.data_ptr(), qc.data_ptr(), out_y.data_ptr(), out_cb.data_ptr(), out_cr.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if split:
+        err = build.load().dmmt_phase1_mm_split(*args, *(t.ctypes.data for t in DCT_SPLIT), *outs)
+        build.check(err, "dmmt_phase1_mm_split")
+        build.LAUNCHES["phase1_mm_high"] += 1
+    else:
+        err = build.load().dmmt_phase1_mm(*args, DCT_MATRIX.ctypes.data, *outs)
+        build.check(err, "dmmt_phase1_mm")
+        build.LAUNCHES["phase1_mm"] += 1
     return out_y, out_cb, out_cr

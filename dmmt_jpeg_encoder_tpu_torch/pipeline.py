@@ -26,19 +26,23 @@ fused_phase1_zigzag_blocks). It routes as the JAX package does: the ARAI
 variant on DMMT_P1: "pallas" runs the plane DCT kernel
 (ops/pallas_dct, same bits as "plane"), "mxu" the matmul plane DCT kernel
 (ops/mxu_dct) and "fused1" the fused matmul phase-1 kernel
-(ops/fused_phase1), both not Arai-bit-exact; every other value ("plane",
+(ops/fused_phase1), both not Arai-bit-exact, and both at the matmul
+precision DMMT_P1_PREC selects (ops/mxu_dct: "high" passes `split` to
+their kernels); every other value ("plane",
 the default, and the layout modes plane_mm, plane2, block and fused2,
 whose bits equal plane's) runs the phase-1 kernel (ops/fused_arai). A
 DCT variant other than ARAI ignores DMMT_P1: FUSED runs the block DCT
 kernel (ops/fused) on blockized planes, SIMPLE and SEPARATED the matmul
 plane DCT kernel, whose floats equal theirs (C X C^T, the same summation
-order; blockize only changes the layout).
+order; blockize only changes the layout) and do not read
+DMMT_P1_PREC.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -152,19 +156,18 @@ def phase1_blocks(
 
     lq, cq = (device_constant(np.asarray(q), rgb.device) for q in (luma_q, chroma_q))
     entangle = preset is ChromaSubsamplingPreset.P420
-    if mode in ("mxu", "fused1"):
-        check_p1_precision()
+    split = mode in ("mxu", "fused1") and check_p1_precision() == "high"
     if variant is DCTVariant.FUSED:
         y, cb, cr = ycbcr_planes(rgb, maxval, preset)
         blocks = (fused_dct_quantize_zigzag(entangled_blockize_p420(y) if entangle else blockize(y),
                                             luma_q),
                   *(fused_dct_quantize_zigzag(blockize(c), chroma_q) for c in (cb, cr)))
     elif mode == "fused1":
-        y, cb, cr = fused_phase1(rgb, maxval, lq, cq, preset)
+        y, cb, cr = fused_phase1(rgb, maxval, lq, cq, preset, split)
         blocks = (plane_to_zigzag_blocks(y, entangle),
                   *(plane_to_zigzag_blocks(c, False) for c in (cb, cr)))
     elif mode in ("pallas", "mxu", None):
-        dct = plane_dct_quant_kernel if mode == "pallas" else plane_dct_quant_mxu
+        dct = plane_dct_quant_kernel if mode == "pallas" else partial(plane_dct_quant_mxu, split=split)
         y, cb, cr = ycbcr_planes(rgb, maxval, preset)
         # one chroma launch: Cb and Cr stacked (raster order: all Cb, then Cr)
         cbcr = plane_to_zigzag_blocks(dct(torch.cat([cb, cr]), cq), False)

@@ -150,10 +150,10 @@ def test_cli_flags_mirror_jax():
 
 
 def test_unported_configs_raise():
-    """Only DMMT_P1_PREC=high raises (test_torch_p1_modes.py): the
-    SEPARATED variant and sharding (fused_batch ignored) encode with the JAX
-    package's bytes; the host backend and one_dispatch="off" encode
-    (test_torch_two_dispatch.py)."""
+    """No config raises (DMMT_P1_PREC=high encodes:
+    test_torch_p1_precision_high.py): the SEPARATED variant and sharding
+    (fused_batch ignored) encode with the JAX package's bytes; the host
+    backend and one_dispatch="off" encode (test_torch_two_dispatch.py)."""
     px = _image(7, (8, 8))
     cfg = dt.EncoderConfig(dct_variant=dt.DCTVariant.SEPARATED)
     want = dj.encode_array(px, 255, dj.EncoderConfig(dct_variant=dj.DCTVariant.SEPARATED))
@@ -208,6 +208,14 @@ def test_port_imports_no_jax():
         "assert not capability.kernels_capable('cpu')\n"
         "import os; os.environ['DMMT_P1'] = 'mxu'\n"
         "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
+        "from dmmt_jpeg_encoder_tpu_torch.ops.mxu_dct import check_p1_precision, dot_p1, split_bf16\n"
+        "os.environ['DMMT_P1_PREC'] = 'high'; assert check_p1_precision() == 'high'\n"
+        "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
+        "os.environ['DMMT_P1'] = 'fused1'\n"
+        "assert p.encode_batch([px, px], 255, device='cpu')[0] == p.encode_array(px, 255, device='cpu')\n"
+        "import torch; c = torch.eye(8); assert torch.equal(dot_p1(c, c), c)\n"
+        "assert torch.equal(sum(split_bf16(torch.tensor([1.0, 0.5]))), torch.tensor([1.0, 0.5]))\n"
+        "os.environ['DMMT_P1'] = 'mxu'; del os.environ['DMMT_P1_PREC']\n"
         "from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native\n"
         "assert load_native() is not None\n"
         "del os.environ['DMMT_P1']\n"

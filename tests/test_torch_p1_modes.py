@@ -5,7 +5,8 @@ fused matmul phase-1 kernel).
 Each kernel's plain version is held against its JAX counterpart on the
 CPU, the float32 stages of the fused1 reference against jitted XLA, and
 the JPEG bytes of every route against the JAX package's under the same
-DMMT_P1. The tolerance is zero everywhere."""
+DMMT_P1 (DMMT_P1_PREC=high: test_torch_p1_precision_high.py). The
+tolerance is zero everywhere."""
 
 import dataclasses
 
@@ -214,12 +215,14 @@ def test_layout_modes_take_the_default_route(monkeypatch):
 
 
 def test_p1_precision_refusals(monkeypatch):
+    """DMMT_P1_PREC on the mxu and fused1 routes: "medium" raises
+    ValueError, "high" encodes with the JAX package's bytes, "highest"
+    encodes; the other routes do not read it, as in the JAX package."""
     px = _pixels(4, (16, 16), 255)
     for mode in ("mxu", "fused1"):
         monkeypatch.setenv("DMMT_P1", mode)
         monkeypatch.setenv("DMMT_P1_PREC", "high")
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            dt.encode_array(px, 255, device="cpu")
+        assert dt.encode_array(px, 255, device="cpu") == dj.encode_array(px, 255)
         monkeypatch.setenv("DMMT_P1_PREC", "medium")
         with pytest.raises(ValueError, match="DMMT_P1_PREC"):
             dt.encode_array(px, 255, device="cpu")
@@ -236,13 +239,21 @@ def test_p1_precision_refusals(monkeypatch):
 
 
 def test_cli_refuses_p1_precision_high(monkeypatch, tmp_path):
+    """The CLI under DMMT_P1_PREC: "high" writes the JAX CLI's bytes,
+    "highest" encodes, and a value that is neither exits with code 1."""
+    from dmmt_jpeg_encoder_tpu import cli as jax_cli
     from dmmt_jpeg_encoder_tpu.io.ppm import write_ppm
     from dmmt_jpeg_encoder_tpu_torch import cli as port_cli
 
-    src, out = tmp_path / "in.ppm", tmp_path / "out.jpg"
+    src, out, want = tmp_path / "in.ppm", tmp_path / "out.jpg", tmp_path / "want.jpg"
     write_ppm(src, _pixels(5, (16, 16), 255))
     monkeypatch.setenv("DMMT_P1", "mxu")
     monkeypatch.setenv("DMMT_P1_PREC", "high")
+    assert port_cli.main([str(src), str(out), "--device", "cpu"]) == 0
+    assert jax_cli.main([str(src), str(want)]) == 0
+    assert out.read_bytes() == want.read_bytes()
+    out.unlink()
+    monkeypatch.setenv("DMMT_P1_PREC", "medium")
     assert port_cli.main([str(src), str(out), "--device", "cpu"]) == 1
     assert not out.exists()
     monkeypatch.setenv("DMMT_P1_PREC", "highest")

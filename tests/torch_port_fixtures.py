@@ -9,7 +9,8 @@ against these digests. Batch fixtures (`BATCH_FIXTURES`, under the key
 "batches") hold the same per frame; frame i of a batch is built from the
 batch's seed + i, so every frame differs. Under "routes", the same per
 fixture for each phase-1 route of `ROUTES` (a DMMT_P1 value or a DCT
-variant), and under "route_batches" the frames of the batches named in
+variant; the `HIGH_ROUTES` also under DMMT_P1_PREC=high), and under
+"route_batches" the frames of the batches named in
 `ROUTE_BATCHES`.
 
 Regenerate the goldens (needs the JAX package) with
@@ -60,7 +61,11 @@ ROUTES: dict[str, tuple[str | None, str]] = {
     "dct_simple": (None, "simple"),
     "dct_separated": (None, "separated"),
     "dct_fused": (None, "fused"),
+    "p1_mxu_high": ("mxu", "arai"),
+    "p1_fused1_high": ("fused1", "arai"),
 }
+# the routes run with DMMT_P1_PREC=high (the others with it unset)
+HIGH_ROUTES = ("p1_mxu_high", "p1_fused1_high")
 # route -> batch fixtures with goldens under it
 ROUTE_BATCHES: dict[str, list[str]] = {
     "p1_mxu": ["batch_1080p_p420"],
@@ -70,18 +75,23 @@ ROUTE_BATCHES: dict[str, list[str]] = {
 
 @contextlib.contextmanager
 def route_env(route: str | None):
-    """DMMT_P1 as `route` sets it (unset for a DCT-variant route or None),
-    restored after the block."""
-    saved = os.environ.pop("DMMT_P1", None)
+    """DMMT_P1 and DMMT_P1_PREC as `route` sets them (each unset where the
+    route does not set it: DMMT_P1 for a DCT-variant route or None,
+    DMMT_P1_PREC outside HIGH_ROUTES), restored after the block."""
+    names = ("DMMT_P1", "DMMT_P1_PREC")
+    saved = {k: os.environ.pop(k, None) for k in names}
     mode = ROUTES[route][0] if route else None
     if mode:
         os.environ["DMMT_P1"] = mode
+    if route in HIGH_ROUTES:
+        os.environ["DMMT_P1_PREC"] = "high"
     try:
         yield
     finally:
-        os.environ.pop("DMMT_P1", None)
-        if saved is not None:
-            os.environ["DMMT_P1"] = saved
+        for k in names:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
 
 
 def fixture_pixels(name: str) -> np.ndarray:
