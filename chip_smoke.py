@@ -119,7 +119,14 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    multi-process encode (parallel/multihost.py) in two gloo processes;
    every JPEG held against the JAX goldens; then what sharding costs on
    one card: the warm 4K encode at 1, 2 and 4 shards and the 16 x 1080p
-   batch as slab and as sharded slab.
+   batch as slab and as sharded slab;
+6. the port's bench stage, `python -m dmmt_jpeg_encoder_tpu_torch.bench
+   --rounds 3` in its own process: it must exit 0 (no stage or candidate
+   failed, every timed JPEG equal to its reference) with every metric of
+   bench.METRIC_ORDER final, in that order; its metric lines are printed,
+   and its launch counts (from 0 in that process, read at its end) join
+   the kernels' counts; then the projected scaling table of
+   parallel/projection.py from its committed H100 points, printed.
 
 The last three lines are the nvidia-smi line, a JSON object with one entry
 per kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
@@ -191,6 +198,12 @@ ROUTE_LAUNCHES = {
 }
 # Published H100 SXM peaks at a 700 W limit: HBM bytes/s, and float32 (and
 # 32-bit integer) operations/s outside the tensor cores.
+# The bench stage (phase 6): its rounds per metric, and the kernels its
+# stages launch (the default route, DMMT_P1=fused1 and DMMT_HIST=matmul of
+# the mode sweep, the probe of the sharded encode its collective
+# measurement runs); every other kernel must not launch there.
+BENCH_ROUNDS = 3
+BENCH_KERNELS = ("phase1", "block_hist", "scan_pack", "histogram", "phase1_mm", "probe")
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # Operations per unit of work, counted from the kernels' arithmetic (an fma
@@ -1599,6 +1612,49 @@ def main() -> int:
         log(f"{label} sharded n=2 on one card, host stages: staging + upload {up:.3f} ms; start "
             f"(staging, upload, all device work) {st:.3f} ms; finish (fetches, bit-merge, stuffing) "
             f"{fin:.3f} ms; median of 5 on {gpu}")
+
+    # --- 6. the bench stage and the projection -------------------------------
+    # the bench in its own process, whose launch counts start at 0 and are
+    # read at its end; every final metric present, the device-program one
+    # last, no stage failed
+    from dmmt_jpeg_encoder_tpu_torch import bench
+    from dmmt_jpeg_encoder_tpu_torch.parallel import projection
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dmmt_jpeg_encoder_tpu_torch.bench", "--rounds",
+                           str(BENCH_ROUNDS), "--attempts", "1", "--attempt-timeout", "600"],
+                          cwd=REPO, capture_output=True, text=True, timeout=660)
+    for line in proc.stderr.splitlines():
+        log(f"bench: {line}")
+    finals = [json.loads(line) for line in proc.stdout.splitlines()
+              if line.startswith("{") and json.loads(line).get("final")]
+    for line in finals:
+        log(json.dumps(line))
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}")
+    if [m["metric"] for m in finals] != bench.METRIC_ORDER:
+        raise AssertionError(f"bench final metrics {[m['metric'] for m in finals]} are not "
+                             f"{bench.METRIC_ORDER}")
+    counts = json.loads(proc.stderr.split("bench launches: ")[-1].splitlines()[0])
+    log(f"bench launches: {counts}")
+    for k, n in counts.items():
+        if (n == 0) if k in BENCH_KERNELS else (n != 0):
+            raise AssertionError(f"bench: {k} launched {n} times, expected "
+                                 f"{'at least one' if k in BENCH_KERNELS else 0}")
+        launches[k] += n
+    log(f"bench: {len(finals)} final metrics, every stage's JPEGs == references, "
+        f"{time.perf_counter() - t0:.1f} s with process start")
+    # efficiency is against one image on one card, so it is 1 at n = 1
+    # only without a slab; slab_b=None takes the gate's depth per n
+    for slab_b in (1, None):
+        table = projection.projected_scaling_table(slab_b=slab_b)
+        for row in table:
+            log(f"projection (one card's floors, slab_b={slab_b}): {json.dumps(row)}")
+        depths = [projection.best_slab_b(2160, r["chips"]) if slab_b is None else 1 for r in table]
+        if (slab_b == 1 and table[0]["proj_efficiency"] != 1.0) \
+                or [r["slab_b"] for r in table] != depths \
+                or not all(0 < r["proj_ms_per_image"] < float("inf") for r in table):
+            raise AssertionError(f"projection table is not sound: {table}")
 
     kernels = [
         {"name": k, "route": "cuda", "source": source, "replaces": rep, "launches": launches[k],

@@ -222,27 +222,41 @@ def slab_depth(images: list[np.ndarray], config: EncoderConfig, devices: list | 
     that has them.)"""
     if len(images) < 2 or len({px.shape for px in images}) != 1:
         return 1
-    if os.environ.get("DMMT_SLAB", "1") == "0":
-        return 1
     h, w = int(images[0].shape[0]), int(images[0].shape[1])
-    preset = config.chroma_subsampling
     if devices is None:
         if not _use_one_dispatch(config, h, w):
             return 1
-        rows, blocks = padded_size(h, w, preset)[0], blocks_per_image(h, w, preset)
     else:
-        from .parallel.sharding import Geometry, use_sharded_onedispatch
+        from .parallel.sharding import use_sharded_onedispatch
 
         if not use_sharded_onedispatch(config, h, w, devices):
             return 1
-        geom = Geometry.of(h, w, preset, config.num_shards)
+    return slab_gate(h, w, config.chroma_subsampling, config.num_shards if devices is not None else 1,
+                     len(images))
+
+
+def slab_gate(height: int, width: int, preset, num_shards: int, n_images: int) -> int:
+    """The depth slab_depth gives n_images same-shape images that take the
+    one-dispatch encode (parallel.projection.best_slab_b reads it too): 1
+    under DMMT_SLAB=0 or when a program's share of an image (its padded
+    rows; with num_shards > 1 a shard's rows) is taller than
+    DMMT_SLAB_MAX_ROWS, else DMMT_SLAB_B (default SLAB_B), at most
+    n_images, at most slab_max_blocks() // blocks of that share."""
+    if os.environ.get("DMMT_SLAB", "1") == "0":
+        return 1
+    if num_shards > 1:
+        from .parallel.sharding import Geometry
+
+        geom = Geometry.of(height, width, preset, num_shards)
         rows, blocks = geom.shard_h, geom.n_scan
+    else:
+        rows, blocks = padded_size(height, width, preset)[0], blocks_per_image(height, width, preset)
     max_rows = os.environ.get("DMMT_SLAB_MAX_ROWS")
     if max_rows is not None and rows > int(max_rows):
         return 1
     b_env = os.environ.get("DMMT_SLAB_B", "auto")
     depth = SLAB_B if b_env == "auto" else int(b_env)
-    return max(1, min(len(images), depth, slab_max_blocks() // blocks))
+    return max(1, min(n_images, depth, slab_max_blocks() // blocks))
 
 
 # Reused host staging buffers, per (group size, true size, padded size,

@@ -239,6 +239,12 @@ def test_port_imports_no_jax():
         "assert 'total:' in t.report()\n"
         "from dmmt_jpeg_encoder_tpu_torch.ops.dct import idct2d\n"
         "from dmmt_jpeg_encoder_tpu_torch.ops.geometry import subsample_generalized\n"
+        "from dmmt_jpeg_encoder_tpu_torch import bench\n"
+        "assert bench.frame_pixels(16, 24).shape == (16, 24, 3)\n"
+        "assert bench.main(['--child', '--device', 'cpu', '--width', '24', '--height', '16',"
+        " '--rounds', '1', '--device-only', '--no-8k', '--no-slab']) == 0\n"
+        "from dmmt_jpeg_encoder_tpu_torch.parallel import projection\n"
+        "assert [r['chips'] for r in projection.projected_scaling_table(slab_b=None)] == [1, 2, 4, 8]\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
         " or m == 'dmmt_jpeg_encoder_tpu']\n"
         "assert not bad, bad\n"
