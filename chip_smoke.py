@@ -102,6 +102,23 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    golden JPEG decoded by the port's debug.jpeg_decoder (the card's machine
    has no PIL), its PSNR against the source held to the floor that
    tests/test_torch_tooling.py measures on the CPU;
+   then the one-dispatch programs (CUDA graphs, onedispatch.py): every
+   fixture under every route, the 333x1001 fixture under DMMT_HIST=matmul
+   and pallas, the 4K and 7x17 frames as planar host arrays and card
+   tensors, the odd and 1080p batches through start_one_dispatch_slab with
+   DMMT_SLAB_ONEPACK=0 and 1, and 4 x 1080p through
+   start_one_dispatch_multi (interleaved and planar): each replayed JPEG
+   held against the eager enqueue's (onedispatch._enqueue, op by op) and
+   its golden, each call exactly one graph replay with the per-image
+   kernel counts; 8 starts on 8 rolled 4K frames in flight, finished in
+   reverse order, each against its frame's two-dispatch bytes; DMMT_P1
+   toggled to fused1 after the first capture at 4K and back (the
+   p1_fused1 golden, then the default's); then, eager enqueue against
+   graph replay in 10 alternating rounds, one start's host time, the
+   program floor (8 starts in flight, per image) and the 4K e2e; the
+   graphs' memory and torch.cuda.memory_reserved() after the phase.
+   Every path of phases 4-4c also checks its graph replays (one per
+   start, slab or multi call; none on the two-dispatch and fused paths);
 5. the sharded encode (parallel/sharding.py), its shards on card 0 (a
    device list that repeats it), each path's launches counted with the
    capability probe among them: every single-image fixture at
@@ -128,8 +145,10 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    the kernels' counts; then the projected scaling table of
    parallel/projection.py from its committed H100 points, printed.
 
-The last three lines are the nvidia-smi line, a JSON object with one entry
-per kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
+A captured program's kernels count as its capture launched them, once per
+replay (kernels/build.py); its warm-up and capture count nothing. The last
+three lines are the nvidia-smi line, a JSON object with one entry per
+kernel, and {"ok": true, "device": {...}}. Exits nonzero, printing no
 result, when no CUDA device is available.
 """
 
@@ -592,7 +611,10 @@ def main() -> int:
     from dmmt_jpeg_encoder_tpu_torch.parallel import sharding
     from dmmt_jpeg_encoder_tpu_torch.pipeline import (
         dc_dpcm,
+        image_layout,
+        interleaved,
         phase1_zigzag_blocks,
+        row_stack,
         run_device_pipeline_batch,
         ycbcr_planes,
     )
@@ -601,6 +623,7 @@ def main() -> int:
     from dmmt_jpeg_encoder_tpu_torch.tools.timing import device_ms
     from dmmt_jpeg_encoder_tpu_torch.utils import capability
     from dmmt_jpeg_encoder_tpu_torch.utils.capability import probe_add_one
+    from dmmt_jpeg_encoder_tpu_torch.utils.device import as_device
     from dmmt_jpeg_encoder_tpu_torch.utils.native import load_native
     from torch_port_fixtures import (
         BATCH_FIXTURES,
@@ -1123,19 +1146,27 @@ def main() -> int:
     # --- 4. end to end -----------------------------------------------------
     launches = {k: 0 for k in KERNEL_INFO}
 
-    def run_path(label, fn, expect):
+    replays = {k: 0 for k in build.REPLAYS}
+
+    def run_path(label, fn, expect, replayed=None):
         """Drive one path with the counts reset just before and read just
-        after; `expect` maps kernel -> required count (None: at least one)."""
+        after; `expect` maps kernel -> required count (None: at least one),
+        `replayed` (when given) one-dispatch program kind -> graph replays,
+        every other kind 0."""
         build.reset_launch_counts()
         result = fn()
-        counts = build.launch_counts()
-        log(f"{label} launches: {counts}")
+        counts, replay = build.launch_counts(), build.replay_counts()
+        log(f"{label} launches: {counts}; graph replays: {replay}")
         for k, want in expect.items():
             if (counts[k] == 0) if want is None else (counts[k] != want):
                 raise AssertionError(f"{label}: {k} launched {counts[k]} times, expected "
                                      f"{'at least one' if want is None else want}")
+        if replayed is not None and replay != {**dict.fromkeys(replay, 0), **replayed}:
+            raise AssertionError(f"{label}: graph replays {replay}, expected {replayed}")
         for k, n in counts.items():
             launches[k] += n
+        for k, n in replay.items():
+            replays[k] += n
         return result
 
     def check_golden(name, jpeg, label):
@@ -1157,7 +1188,7 @@ def main() -> int:
         outputs = run_path(f"single-image fixtures, {label}", lambda: {
             name: port.encode_array(images[name], f["maxval"], cfgs[name], device=dev)
             for name, f in FIXTURES.items()
-        }, expect)
+        }, expect, {"onedispatch": n_fix} if cfgs is configs else {})
         for name, jpeg in outputs.items():
             check_golden(name, jpeg, label)
 
@@ -1199,7 +1230,8 @@ def main() -> int:
                 def batch():
                     return port.encode_batch(frames, f["maxval"], cfg, device=dev)
 
-                out = run_path(f"{name} {arm} (depth {depth})", batch, expect)
+                out = run_path(f"{name} {arm} (depth {depth})", batch, expect,
+                               {"onedispatch_slab": groups} if depth > 1 else {"onedispatch": f["n"]})
                 if [sha256(j) for j in out] != want:
                     raise AssertionError(f"{name} {arm}: cuda JPEGs differ from the JAX goldens")
                 rates[arm] = mpix / wall_ms(batch) * 1e3
@@ -1216,7 +1248,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         out = run_path(f"{name} fused_batch={f['n']}", fused, {
             "phase1": chunks, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
-            "histogram": 4 * chunks, "table_lookup": 2 * chunks, "pack_emissions": chunks})
+            "histogram": 4 * chunks, "table_lookup": 2 * chunks, "pack_emissions": chunks}, {})
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         if [sha256(j) for j in out] != want:
             raise AssertionError(f"{name} fused_batch: cuda JPEGs differ from the JAX goldens")
@@ -1260,7 +1292,7 @@ def main() -> int:
                 outputs = run_path(f"{route}: single-image fixtures, {label}", lambda: {
                     name: port.encode_array(images[name], f["maxval"], cfgs[name], device=dev)
                     for name, f in FIXTURES.items()
-                }, expect)
+                }, expect, {"onedispatch": n_fix} if cfgs is rcfgs else {})
             for name, jpeg in outputs.items():
                 g = route_goldens[route][name]
                 if sha256(jpeg) != g["jpeg_sha256"] or len(jpeg) != g["jpeg_len"]:
@@ -1282,7 +1314,8 @@ def main() -> int:
                       "table_lookup": 2, "pack_emissions": 1, **per}),
                 ):
                     out = run_path(f"{route}: {name} {label}", lambda: port.encode_batch(
-                        frames, f["maxval"], cfg, fused_batch=fb, device=dev), {**none_new, **expect})
+                        frames, f["maxval"], cfg, fused_batch=fb, device=dev), {**none_new, **expect},
+                        {} if fb else {"onedispatch_slab": groups})
                     if [sha256(j) for j in out] != want:
                         raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
                     log(f"{route}: {name} {label}: every frame == JAX golden")
@@ -1335,7 +1368,7 @@ def main() -> int:
                 with route_env(route):
                     jpegs = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
                         pixels, f["maxval"], cfg, lq, cq, device=dev)], cfg, px.shape[:2]),
-                        per_image(counts, 1))
+                        per_image(counts, 1), {"onedispatch": 1})
                 check_frames(label, jpegs, [want])
     for name in ("batch_odd_p422", "batch_1080p_p420"):
         f, frames = BATCH_FIXTURES[name], batches[name]
@@ -1345,7 +1378,7 @@ def main() -> int:
         label = f"{name} start_one_dispatch_slab, planar host stack [B, 3, H, W]"
         jpegs = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_slab(
             stack, f["maxval"], cfg, lq, cq, device=dev), cfg, frames[0].shape[:2]),
-            {**per_image({}, f["n"]), "phase1": 1})
+            {**per_image({}, f["n"]), "phase1": 1}, {"onedispatch_slab": 1})
         check_frames(label, jpegs, batch_goldens[name])
 
     fm, frames_m = BATCH_FIXTURES["batch_1080p_p420"], batches["batch_1080p_p420"][:4]
@@ -1357,7 +1390,7 @@ def main() -> int:
         label = f"batch_1080p_p420 x 4 start_one_dispatch_multi, host {layout}"
         jpegs = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_multi(
             pixels, fm["maxval"], cfg_m, lq_m, cq_m, device=dev), cfg_m, shape_m),
-            per_image({"phase1": 1}, 4))
+            per_image({"phase1": 1}, 4), {"onedispatch_multi": 1})
         check_frames(label, jpegs, batch_goldens["batch_1080p_p420"][:4])
 
     def multi_scans():
@@ -1394,6 +1427,191 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if decoded.shape != four_k.shape or not value >= DECODE_PSNR_FLOOR_4K:
         raise AssertionError(f"4k_p420 decode: PSNR {value} dB below the floor {DECODE_PSNR_FLOOR_4K}")
+
+    # --- 4c. the one-dispatch programs (CUDA graphs) -------------------------
+    # every start is one replay of a captured program; its JPEG must equal
+    # the eager enqueue's (onedispatch._enqueue: what the program captures,
+    # run op by op) and the golden
+    t_phase = time.perf_counter()
+
+    def eager_jpegs(pixels, maxval, cfg, shape, group=None, onepack=False):
+        """The eager enqueue's JPEGs: one image, or a slab ("slab") or multi
+        ("multi") group."""
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        if group == "slab":
+            rgb = row_stack(pixels, maxval, cfg.chroma_subsampling, dev)
+            states = onedispatch._enqueue(rgb, int(pixels.shape[0]), maxval, cfg, lq, cq, onepack)
+        else:
+            planar = image_layout(pixels.shape[1:] if group else pixels.shape)[0]
+            rgbs = interleaved(as_device(pixels, maxval, dev), planar)
+            states = [s for rgb in (rgbs.unbind(0) if group else [rgbs])
+                      for s in onedispatch._enqueue(rgb, 1, maxval, cfg, lq, cq, False)]
+        return jpegs_of(states, cfg, shape)
+
+    def check_replay(label, graph, eager, want):
+        if graph != eager:
+            raise AssertionError(f"{label}: the replayed JPEGs differ from the eager enqueue's")
+        if [sha256(j) for j in graph] != want:
+            raise AssertionError(f"{label}: the replayed JPEGs differ from the JAX goldens")
+
+    n_replayed = 0
+    for route in (None, *ROUTES):
+        variant = "arai" if route is None else ROUTES[route][1]
+        per = {"phase1": 1} if route is None else ROUTE_LAUNCHES[route]
+        for name, f in FIXTURES.items():
+            px = images[name]
+            cfg = dataclasses.replace(configs[name], dct_variant=port.DCTVariant(variant))
+            lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+            want = (goldens[name] if route is None else route_goldens[route][name])["jpeg_sha256"]
+            label = f"{name} start_one_dispatch replay, route {route or 'default'}"
+            with route_env(route):
+                graph = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
+                    px, f["maxval"], cfg, lq, cq, device=dev)], cfg, px.shape[:2]),
+                    per_image(per, 1), {"onedispatch": 1})
+                check_replay(label, graph, eager_jpegs(px, f["maxval"], cfg, px.shape[:2]), [want])
+            n_replayed += 1
+    name, f = "333x1001_p422", FIXTURES["333x1001_p422"]
+    px, cfg = images[name], configs[name]
+    lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+    for hist in ("matmul", "pallas"):
+        label = f"{name} start_one_dispatch replay, DMMT_HIST={hist}"
+        with scoped_env({"DMMT_HIST": hist}):
+            graph = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
+                px, f["maxval"], cfg, lq, cq, device=dev)], cfg, px.shape[:2]),
+                {**per_image({"phase1": 1}, 1), "block_hist": 0, "histogram": 4}, {"onedispatch": 1})
+            check_replay(label, graph, eager_jpegs(px, f["maxval"], cfg, px.shape[:2]),
+                         [goldens[name]["jpeg_sha256"]])
+        n_replayed += 1
+    for name in ("4k_p420", "7x17_p444"):
+        f, px, cfg = FIXTURES[name], images[name], configs[name]
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        planar = np.ascontiguousarray(px.transpose(2, 0, 1))
+        for layout, pixels in (("planar host array", planar),
+                               ("planar tensor on the card", torch.from_numpy(planar).to(dev))):
+            label = f"{name} start_one_dispatch replay, {layout}"
+            graph = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
+                pixels, f["maxval"], cfg, lq, cq, device=dev)], cfg, px.shape[:2]),
+                per_image({"phase1": 1}, 1), {"onedispatch": 1})
+            check_replay(label, graph, eager_jpegs(pixels, f["maxval"], cfg, px.shape[:2]),
+                         [goldens[name]["jpeg_sha256"]])
+            n_replayed += 1
+    for name in ("batch_odd_p422", "batch_1080p_p420"):
+        f, frames = BATCH_FIXTURES[name], batches[name]
+        cfg = config_of(f)
+        lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+        stack, n = np.stack(frames), f["n"]
+        for onepack in ("0", "1"):
+            label = f"{name} start_one_dispatch_slab replay, DMMT_SLAB_ONEPACK={onepack}"
+            with scoped_env({"DMMT_SLAB_ONEPACK": onepack}):
+                graph = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_slab(
+                    stack, f["maxval"], cfg, lq, cq, device=dev), cfg, frames[0].shape[:2]),
+                    {**per_image({}, n), "phase1": 1, "scan_pack": n * (onepack == "0"),
+                     "scan_pack_slab": int(onepack == "1")}, {"onedispatch_slab": 1})
+                check_replay(label, graph, eager_jpegs(stack, f["maxval"], cfg, frames[0].shape[:2],
+                                                       "slab", onepack == "1"),
+                             [g["jpeg_sha256"] for g in batch_goldens[name]])
+            n_replayed += 1
+    for layout, pixels in (("[B, H, W, 3]", stack_m),
+                           ("planar [B, 3, H, W]", np.ascontiguousarray(stack_m.transpose(0, 3, 1, 2)))):
+        label = f"batch_1080p_p420 x 4 start_one_dispatch_multi replay, host {layout}"
+        graph = run_path(label, lambda: jpegs_of(onedispatch.start_one_dispatch_multi(
+            pixels, fm["maxval"], cfg_m, lq_m, cq_m, device=dev), cfg_m, shape_m),
+            per_image({"phase1": 1}, 4), {"onedispatch_multi": 1})
+        check_replay(label, graph, eager_jpegs(pixels, fm["maxval"], cfg_m, shape_m, "multi"),
+                     [g["jpeg_sha256"] for g in batch_goldens["batch_1080p_p420"][:4]])
+        n_replayed += 1
+    log(f"one-dispatch programs: {n_replayed} replayed starts (every fixture under every route, "
+        "DMMT_HIST=matmul and pallas, planar input, both slab pack arms, multi groups) == the "
+        "eager enqueue's JPEGs == the JAX goldens, one replay each")
+
+    # 8 starts in flight on 8 different frames, finished in reverse order:
+    # each keeps its own words, tables and bits
+    lq4, cq4 = quantization_table_pair(cfg4.quantization_preset, cfg4.quality)
+    dpx = torch.from_numpy(four_k).to(dev)
+    rolled = [np.roll(four_k, 17 * i, axis=1) for i in range(8)]
+    refs = [port.encode_array(fr, 255, off["4k_p420"], device=dev) for fr in rolled]
+    if len(set(refs)) != 8 or refs[0] != jpeg4k:
+        raise AssertionError("the 8 rolled 4K frames' two-dispatch JPEGs are not 8 distinct ones")
+    dev_frames = [torch.from_numpy(fr).to(dev) for fr in rolled]
+
+    def in_flight():
+        states = [onedispatch.start_one_dispatch(fr, 255, cfg4, lq4, cq4) for fr in dev_frames]
+        return jpegs_of(states[::-1], cfg4, four_k.shape[:2])[::-1]
+
+    if run_path("4k_p420 x 8 rolled frames, 8 starts in flight, finished in reverse", in_flight,
+                per_image({"phase1": 1}, 8), {"onedispatch": 8}) != refs:
+        raise AssertionError("8 starts in flight: a JPEG differs from its frame's two-dispatch bytes")
+    log("4k_p420 x 8 rolled frames in flight, finished in reverse order: each JPEG == its "
+        "frame's two-dispatch bytes")
+
+    # a mode toggled after the first capture at a geometry takes effect
+    onedispatch._compiled_onedispatch.cache_clear()
+    for route, want in ((None, goldens["4k_p420"]), ("p1_fused1", route_goldens["p1_fused1"]["4k_p420"]),
+                        (None, goldens["4k_p420"])):
+        label = f"4k_p420 start_one_dispatch, DMMT_P1 {ROUTES[route][0] if route else 'unset'}"
+        with route_env(route):
+            jpeg = run_path(label, lambda: jpegs_of([onedispatch.start_one_dispatch(
+                four_k, 255, cfg4, lq4, cq4, device=dev)], cfg4, four_k.shape[:2]),
+                per_image(ROUTE_LAUNCHES[route] if route else {"phase1": 1}, 1), {"onedispatch": 1})
+        if sha256(jpeg[0]) != want["jpeg_sha256"]:
+            raise AssertionError(f"{label}: the JPEG differs from its golden after the toggle")
+    if onedispatch._compiled_onedispatch.cache_info().currsize != 2:
+        raise AssertionError(f"DMMT_P1 toggled: {onedispatch._compiled_onedispatch.cache_info()}")
+    log("DMMT_P1 toggled to fused1 after the first capture at 4K, then back: the p1_fused1 "
+        "golden, then the default golden again, from two cache entries")
+
+    # before (the eager enqueue, op by op) against after (one replay), in
+    # alternating rounds: the host time of one start on pixels already on
+    # the card; the program floor (8 starts in flight, one read of the last
+    # bit count, per image); the 4K e2e (host array in, JPEG bytes out)
+    def eager_start():
+        return onedispatch._enqueue(dpx, 1, 255, cfg4, lq4, cq4, False)[0]
+
+    def graph_start():
+        return onedispatch.start_one_dispatch(dpx, 255, cfg4, lq4, cq4)
+
+    def eager_e2e():
+        state = onedispatch._enqueue(as_device(four_k, 255, dev), 1, 255, cfg4, lq4, cq4, False)[0]
+        return jpeg_bytes(four_k.shape, cfg4, lq4, cq4, *onedispatch.finish_one_dispatch(state))
+
+    def graph_e2e():
+        return port.encode_array(four_k, 255, cfg4, device=dev)
+
+    if eager_e2e() != graph_e2e() or graph_e2e() != jpeg4k:
+        raise AssertionError("4K e2e: the eager enqueue's JPEG differs from encode_array's")
+    samples = {k: [] for k in ("host eager", "host graph", "floor eager", "floor graph",
+                               "e2e eager", "e2e graph")}
+    for order in (("eager", "graph"), ("graph", "eager")) * 5:
+        for arm in order:
+            start = eager_start if arm == "eager" else graph_start
+            for _ in range(10):
+                t0 = time.perf_counter()
+                state = start()
+                samples[f"host {arm}"].append((time.perf_counter() - t0) * 1e3)
+                state.total_bits.item()
+                del state
+            t0 = time.perf_counter()
+            states = [start() for _ in range(8)]
+            states[-1].total_bits.item()
+            samples[f"floor {arm}"].append((time.perf_counter() - t0) * 1e3 / 8)
+            del states
+            t0 = time.perf_counter()
+            (eager_e2e if arm == "eager" else graph_e2e)()
+            samples[f"e2e {arm}"].append((time.perf_counter() - t0) * 1e3)
+    mpix4 = four_k.shape[0] * four_k.shape[1] / 1e6
+    for k, v in samples.items():
+        med = statistics.median(v)
+        rate = "" if k.startswith("host") else f", {mpix4 / med * 1e3:.1f} Mpix/s"
+        log(f"4k_p420 {k}: median {med:.4f} ms ({min(v):.4f}-{max(v):.4f}) of {len(v)}{rate} "
+            f"on {gpu}")
+    pool = onedispatch._compiled_onedispatch(
+        2160, 3840, cfg4.chroma_subsampling, cfg4.dct_variant, False,
+        *onedispatch.program_key(dpx, 255, lq4, cq4, dpx.device))
+    log(f"4k_p420 one instance's graph pool: {max((p.bytes for p in pool.idle), default=0)} bytes, "
+        f"{len(pool.idle)} instances "
+        f"idle; all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda."
+        f"memory_reserved {torch.cuda.memory_reserved(dev)} bytes after the phase; graph replays so "
+        f"far {json.dumps(replays)}; phase {time.perf_counter() - t_phase:.1f} s")
 
     # --- 5. the sharded encode (parallel/sharding.py) ------------------------
     # n shards on card 0 (a device list that repeats it); each path starts

@@ -69,6 +69,7 @@ def ac_symbols_and_structure(
 def symbol_histograms(
     coeffs_zz: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
     block_mask: torch.Tensor | None = None,
+    state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dc_hist[16], ac_hist[256]) int32 for [N, 64] zigzag blocks whose DC
     entries are already DPCM deltas, or for a pair of them (Cb, Cr) as
@@ -76,21 +77,22 @@ def symbol_histograms(
     optional) is nonzero. The block-histogram kernel takes a pair as two
     segments; the weighted kernel counts the concatenation. A masked count
     always takes the weighted kernel, as in the JAX package (the sharded
-    encode's mask over Cb and Cr together is no prefix)."""
+    encode's mask over Cb and Cr together is no prefix). `state`: the
+    kernels' state (ops/block_hist.kernel_state), default the stream's."""
     from ..ops.block_hist import fused_block_histograms
     from ..ops.histogram import histogram
 
     if os.environ.get("DMMT_HIST", "fused") == "fused" and block_mask is None:
-        return fused_block_histograms(coeffs_zz)
+        return fused_block_histograms(coeffs_zz, state=state)
     if not isinstance(coeffs_zz, torch.Tensor):
         coeffs_zz = torch.cat(list(coeffs_zz))
     n = int(coeffs_zz.shape[0])
     weight = (torch.ones(n, dtype=torch.int32, device=coeffs_zz.device) if block_mask is None
               else (block_mask != 0).to(torch.int32))
     dc_cat = magnitude_category(coeffs_zz[:, 0])
-    dc_hist = histogram(dc_cat, weight, 16)
+    dc_hist = histogram(dc_cat, weight, 16, state)
     symbols, nz, zrl, eob = ac_symbols_and_structure(coeffs_zz)
-    ac_hist = histogram(symbols, nz.to(torch.int32) * weight[:, None], 256)
+    ac_hist = histogram(symbols, nz.to(torch.int32) * weight[:, None], 256, state)
     ac_hist[0xF0] += (zrl * weight[:, None]).sum(dtype=torch.int32)
     ac_hist[0x00] += (eob.to(torch.int32) * weight).sum(dtype=torch.int32)
     return dc_hist, ac_hist

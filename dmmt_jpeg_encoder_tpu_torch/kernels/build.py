@@ -17,7 +17,10 @@ JAX reference) and `-prec-div=true` (IEEE division); never
 Every C entry point takes PyTorch's current stream and returns
 `cudaGetLastError()` after its launches; `check` raises on a nonzero
 code. Each kernel wrapper adds one to its count in `LAUNCHES` where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else. A captured one-dispatch program
+(onedispatch.py) launches its kernels when its CUDA graph replays, not
+where its wrappers ran: it keeps the counts its capture added, adds them
+again on every replay, and adds one to its kind's count in `REPLAYS`.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ LAUNCHES: dict[str, int] = {
     "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0, "probe": 0,
     "plane_dct_mm_high": 0, "phase1_mm_high": 0,
 }
+
+# one-dispatch program kind -> CUDA graph replays since the last reset
+REPLAYS: dict[str, int] = {"onedispatch": 0, "onedispatch_slab": 0, "onedispatch_multi": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -157,9 +163,15 @@ def check(err: int, what: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero the kernel launch counts and the graph replay counts."""
+    for counts in (LAUNCHES, REPLAYS):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def replay_counts() -> dict[str, int]:
+    return dict(REPLAYS)

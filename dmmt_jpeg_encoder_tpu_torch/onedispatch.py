@@ -22,7 +22,34 @@ histograms, all 4B tables come from one batched build, and each image gets
 its own packed stream, so the bytes equal B standalone encodes. The pack
 is B scan-pack calls (default) or one slab scan-pack call
 (DMMT_SLAB_ONEPACK=1), as in the JAX package. `start_one_dispatch_multi`
-enqueues B same-geometry images one single-image encode after another.
+runs B same-geometry images one single-image encode after another.
+
+One program per start. The JAX package compiles each of the three into
+ONE jitted program, cached by geometry and trace_mode_key()
+(`_compiled_onedispatch`, `_compiled_onedispatch_slab`,
+`_compiled_onedispatch_multi`, maxsize 32, 8 and 8). On a card the port
+does the same with CUDA graphs: the caches of those names
+(utils/capability.mode_keyed_cache) hold, per key, a pool of captured
+instances of the whole enqueue above (`_enqueue`, after the interleave of
+a planar input, or the slab's row stack), each with its own static input
+and outputs. A start copies its samples into a leased instance's input
+(a host array: one pageable copy; a tensor: one device copy) and replays
+its graph: one graph launch on the current stream. The key is the JAX
+key plus what the capture bakes in besides: the device, the input dtype,
+maxval (a launch parameter) and the quantization tables' bytes (their
+device_constant pointers). A graph writes the same buffers on every
+replay, so a start leases its instance until each of its states is
+finished (finish_one_dispatch) or collected; a start that finds every
+instance leased captures another. A new instance first runs the enqueue
+once eagerly on the capture stream (builds the kernels, fills the
+device constants, touches every lazy allocation), then is captured with
+its own histogram-kernel state; neither counts as launches
+(kernels/build.py). All instances together hold at most GRAPH_MAX_BYTES
+of graph memory beyond the one being built: past it, the idle instances
+of every key are dropped, and a start raises when the leased ones alone
+hold that much. A failed capture raises; there is no eager fallback on a
+card. On the CPU the start functions run `_enqueue` eagerly (the plain
+path).
 
 Word buffers are sized for the worst case (64 words per block + 2), so
 buffers depend only on the image geometry. `prefetch_one_dispatch`
@@ -42,8 +69,13 @@ the start functions here raise NotImplementedError for them.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import os
+import threading
+import weakref
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -55,14 +87,23 @@ from .bitstream.device_pack import (
     interleave_scan,
 )
 from .bitstream.fused_pack import fused_pack_words, fused_pack_words_slab
-from .config import ChromaSubsamplingPreset, EncoderConfig
+from .config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
 from .entropy.categorize import symbol_histograms
 from .huffman.canonical import flat_code_arrays
 from .huffman.device_tables import device_code_tables_batched, pad_dc_histogram
 from .huffman.spec import SymbolCodeLength
+from .kernels import build
+from .ops.block_hist import new_state
 from .ops.geometry import padded_size
-from .pipeline import image_layout, interleaved, row_stack, zigzag_blocks
-from .utils.device import as_device
+from .pipeline import (
+    image_layout,
+    interleaved,
+    mcu_padded_stack,
+    stacked_rows,
+    zigzag_blocks,
+)
+from .utils.capability import mode_keyed_cache
+from .utils.device import as_device, narrow_pixels, on_device
 
 # Worst-case symbol-total bound for exact device table tie-breaking.
 MAX_DEVICE_TABLE_SYMBOLS = 1 << 28
@@ -72,6 +113,11 @@ WORD_BYTES_PER_BLOCK = 64 * 4
 # hold at most this many bytes (DMMT_SLAB_MAX_BLOCKS overrides the block
 # count it implies). 16 1080p P420 frames need 200.5 MB.
 SLAB_MAX_WORD_BYTES = 1 << 30
+# Graph memory of all captured instances (each its pool's bytes, as
+# measured at capture) beyond the one being built. A single-image 4K P420
+# instance holds 132 MB on an H100; a slab instance grows with its group,
+# whose worst-case words alone may reach SLAB_MAX_WORD_BYTES.
+GRAPH_MAX_BYTES = 16 << 30
 
 
 @dataclass
@@ -86,6 +132,9 @@ class OneDispatchState:
     hists: tuple              # the 4 histograms (DMMT_CHECK_BITS cross-check)
     small: torch.Tensor | None = None  # host copy of bits + spec (prefetch_one_dispatch)
     small_ready: torch.cuda.Event | None = None  # recorded behind that copy (CUDA)
+    # gives the start's program instance back (a weakref.finalize: runs once,
+    # at finish_one_dispatch or when the state is collected); None on the CPU
+    release: Callable | None = dataclasses.field(default=None, repr=False, compare=False)
 
 
 _SIDE_STREAMS: dict[int, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
@@ -137,6 +186,36 @@ def _require_supported(height: int, width: int, preset: ChromaSubsamplingPreset)
         )
 
 
+def _target(pixels: np.ndarray | torch.Tensor, device: torch.device | str) -> torch.device:
+    """Where an encode runs: a tensor where it lies, a host array on
+    `device` (a card with its index)."""
+    dev = pixels.device if isinstance(pixels, torch.Tensor) else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _table_key(q: np.ndarray) -> tuple:
+    q = np.ascontiguousarray(q)
+    return q.dtype.str, q.shape, q.tobytes()
+
+
+def _table(key: tuple) -> np.ndarray:
+    dtype, shape, raw = key
+    return np.frombuffer(raw, dtype=dtype).reshape(shape)
+
+
+def program_key(pixels, maxval: int, luma_q: np.ndarray, chroma_q: np.ndarray,
+                device: torch.device) -> tuple:
+    """What a capture bakes in beyond the JAX package's key: the device, the
+    input dtype, maxval and the quantization tables' bytes."""
+    if isinstance(pixels, torch.Tensor):
+        dtype = pixels.dtype
+    else:
+        dtype = torch.from_numpy(narrow_pixels(np.asarray(pixels[:0]), maxval)).dtype
+    return device, dtype, int(maxval), _table_key(luma_q), _table_key(chroma_q)
+
+
 def start_one_dispatch(
     pixels: np.ndarray | torch.Tensor,
     maxval: int,
@@ -145,13 +224,18 @@ def start_one_dispatch(
     chroma_q: np.ndarray,
     device: torch.device | str = "cuda",
 ) -> OneDispatchState:
-    """Enqueue the full encode of RGB [H, W, 3] or channel-planar [3, H, W]
-    samples (pipeline.image_layout): a host array is uploaded to `device`
-    as it is, a tensor is encoded where it lies; a planar image is
-    interleaved on the device."""
+    """Start the full encode of RGB [H, W, 3] or channel-planar [3, H, W]
+    samples (pipeline.image_layout): a host array is encoded on `device`, a
+    tensor where it lies. On a card: one replay of the program
+    (_compiled_onedispatch); on the CPU: `_enqueue`."""
     planar, height, width = image_layout(pixels.shape)
     _require_supported(height, width, config.chroma_subsampling)
-    rgb = interleaved(as_device(pixels, maxval, device), planar)
+    dev = _target(pixels, device)
+    if dev.type == "cuda":
+        pool = _compiled_onedispatch(height, width, config.chroma_subsampling, config.dct_variant,
+                                     planar, *program_key(pixels, maxval, luma_q, chroma_q, dev))
+        return _start(pool, pixels, maxval)[0]
+    rgb = interleaved(as_device(pixels, maxval, dev), planar)
     return _enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
 
 
@@ -163,15 +247,17 @@ def start_one_dispatch_slab(
     chroma_q: np.ndarray,
     device: torch.device | str = "cuda",
 ) -> list[OneDispatchState]:
-    """Enqueue B same-geometry encodes as one row-stacked slab.
+    """Start B same-geometry encodes as one row-stacked slab.
 
     pixels_stack: [B, H, W, 3] or channel-planar [B, 3, H, W] samples. A
-    host array is pre-padded here to the preset's MCU multiple (black) and
-    uploaded; a tensor must already be padded (pipeline.row_stack).
-    Returns one OneDispatchState per image; finish each with
-    finish_one_dispatch as usual, and its bytes equal a standalone encode."""
+    host array is pre-padded here to the preset's MCU multiple (black); a
+    tensor must already be padded (pipeline.mcu_padded_stack). On a card:
+    one replay of the program (_compiled_onedispatch_slab), which holds the
+    row stack and all that follows it. Returns one OneDispatchState per
+    image; finish each with finish_one_dispatch as usual, and its bytes
+    equal a standalone encode."""
     b = int(pixels_stack.shape[0])
-    _, height, width = image_layout(pixels_stack.shape[1:])
+    planar, height, width = image_layout(pixels_stack.shape[1:])
     preset = config.chroma_subsampling
     _require_supported(height, width, preset)
     limit = slab_max_blocks()
@@ -180,7 +266,13 @@ def start_one_dispatch_slab(
             f"start_one_dispatch_slab: {b} x {blocks_per_image(height, width, preset)} blocks "
             f"exceeds the {limit}-block group bound (DMMT_SLAB_MAX_BLOCKS); split the group"
         )
-    rgb = row_stack(pixels_stack, maxval, preset, device)
+    stack = mcu_padded_stack(pixels_stack, maxval, preset)
+    dev = _target(stack, device)
+    if dev.type == "cuda":
+        pool = _compiled_onedispatch_slab(b, height, width, preset, config.dct_variant, planar,
+                                          *program_key(stack, maxval, luma_q, chroma_q, dev))
+        return _start(pool, stack, maxval)
+    rgb = stacked_rows(as_device(stack, maxval, dev), planar)
     return _enqueue(rgb, b, maxval, config, luma_q, chroma_q, onepack=slab_onepack_enabled())
 
 
@@ -192,20 +284,28 @@ def start_one_dispatch_multi(
     chroma_q: np.ndarray,
     device: torch.device | str = "cuda",
 ) -> list[OneDispatchState]:
-    """Enqueue B same-geometry encodes, one after another on the current
-    stream, as the JAX package's group program runs its single-image
+    """Start B same-geometry encodes, one single-image encode after
+    another, as the JAX package's group program runs its single-image
     program once per image.
 
     pixels_stack: [B, H, W, 3] or channel-planar [B, 3, H, W] samples; a
-    host array is uploaded once, a tensor is encoded where it lies. Each
-    image then gets the single-image enqueue (phase 1, histograms, table
-    build, scan pack), so each state finishes with finish_one_dispatch to
-    the bytes of a standalone start_one_dispatch. The JAX package's
+    host array is encoded on `device`, a tensor where it lies. On a card
+    the group is one program (_compiled_onedispatch_multi), replayed once
+    per call; each state finishes with finish_one_dispatch to the bytes of
+    a standalone start_one_dispatch. The JAX package's
     DMMT_MULTI_MAX_BLOCKS cap bounds the size of one TPU program for its
-    compiler; the port compiles no program per group and has no such cap."""
+    compiler; a CUDA graph needs no such cap, and GRAPH_MAX_BYTES bounds
+    the graphs' memory."""
+    b = int(pixels_stack.shape[0])
     planar, height, width = image_layout(pixels_stack.shape[1:])
     _require_supported(height, width, config.chroma_subsampling)
-    stack = interleaved(as_device(pixels_stack, maxval, device), planar)
+    dev = _target(pixels_stack, device)
+    if dev.type == "cuda":
+        pool = _compiled_onedispatch_multi(b, height, width, config.chroma_subsampling,
+                                           config.dct_variant, planar,
+                                           *program_key(pixels_stack, maxval, luma_q, chroma_q, dev))
+        return _start(pool, pixels_stack, maxval)
+    stack = interleaved(as_device(pixels_stack, maxval, dev), planar)
     return [_enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
             for rgb in stack.unbind(0)]
 
@@ -217,6 +317,7 @@ def pack_inputs(
     config: EncoderConfig,
     luma_q: np.ndarray,
     chroma_q: np.ndarray,
+    hist_state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], list[tuple]]:
     """Everything before the pack, for `rgb` holding n_images row-stacked
     images (one image: any size; several: each MCU-padded): phase 1 once
@@ -224,17 +325,18 @@ def pack_inputs(
     (symbol_histograms, so DMMT_HIST selects the kernel) and one table
     build for all 4B tables. Returns (scans int16 [B, N, 64], tables as
     device_code_tables_batched gives them for [4B, 256] histograms, the
-    four histograms of each image)."""
+    four histograms of each image). `hist_state`: the histogram kernels'
+    state (a captured program's own; default the stream's)."""
     preset = config.chroma_subsampling
     luma, cb, cr = zigzag_blocks(rgb, n_images, maxval, luma_q, chroma_q, preset,
                                  config.dct_variant)
     n_luma, n_chroma = int(luma.shape[0]) // n_images, int(cb.shape[0]) // n_images
     hists, stack = [], []
     for i in range(n_images):
-        l_dc, l_ac = symbol_histograms(luma[i * n_luma : (i + 1) * n_luma])
+        l_dc, l_ac = symbol_histograms(luma[i * n_luma : (i + 1) * n_luma], state=hist_state)
         # the chroma tables are shared by Cb and Cr: one pass over both
         c_dc, c_ac = symbol_histograms((cb[i * n_chroma : (i + 1) * n_chroma],
-                                        cr[i * n_chroma : (i + 1) * n_chroma]))
+                                        cr[i * n_chroma : (i + 1) * n_chroma]), state=hist_state)
         hists.append((l_dc, l_ac, c_dc, c_ac))
         stack += [pad_dc_histogram(l_dc), l_ac, pad_dc_histogram(c_dc), c_ac]
     tables = device_code_tables_batched(torch.stack(stack))
@@ -253,11 +355,13 @@ def _enqueue(
     luma_q: np.ndarray,
     chroma_q: np.ndarray,
     onepack: bool,
+    hist_state: torch.Tensor | None = None,
 ) -> list[OneDispatchState]:
     """pack_inputs, then the pack: one scan-pack call per image, or one
-    slab scan-pack call for all (onepack)."""
+    slab scan-pack call for all (onepack). The eager enqueue: what a
+    program captures, and the CPU's path."""
     preset = config.chroma_subsampling
-    scans, tables, hists = pack_inputs(rgb, n_images, maxval, config, luma_q, chroma_q)
+    scans, tables, hists = pack_inputs(rgb, n_images, maxval, config, luma_q, chroma_q, hist_state)
     lpm = preset.luma_blocks_per_mcu
     n_words = int(scans.shape[1]) * 64 + 2
     codes = tables["codes_flat"].reshape(n_images, 4, 256)
@@ -280,6 +384,195 @@ def _enqueue(
         )
         for i, (words, bits) in enumerate(packs)
     ]
+
+
+_LOCK = threading.RLock()  # pool lists; a collected state gives back from any thread
+_PROGRAMS: weakref.WeakSet = weakref.WeakSet()  # every live captured instance
+_POOLS: weakref.WeakSet = weakref.WeakSet()     # every live pool
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+class _Program:
+    """One captured instance of a one-dispatch program on a card: a static
+    input, the CUDA graph of `enqueue(input, state)`, the states its capture
+    returned (their tensors are the graph's outputs), the launch counts the
+    capture added, and the bytes its memory pool holds."""
+
+    def __init__(self, kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
+                 enqueue: Callable[[torch.Tensor, torch.Tensor | None], list[OneDispatchState]]):
+        self.kind, self.device, self.stream = kind, device, None
+        with torch.cuda.device(device):
+            if device.index not in _CAPTURE_STREAMS:
+                _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+            capture = _CAPTURE_STREAMS[device.index]
+            saved = build.launch_counts()
+            try:
+                self.input = torch.zeros(shape, dtype=dtype, device=device)
+                capture.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(capture):
+                    enqueue(self.input, None)  # warm-up, eager
+                # the graph bakes in this state's pointer: it lives as long as the graph
+                self.hist_state = new_state(device)
+                torch.cuda.synchronize(device)
+                gc.collect()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(device)
+                before = build.launch_counts()
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=capture, capture_error_mode="thread_local"):
+                    self.states = enqueue(self.input, self.hist_state)
+                after = build.launch_counts()
+            finally:
+                build.LAUNCHES.update(saved)  # the warm-up and the capture launch for no caller
+            self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            self.bytes = torch.cuda.memory_reserved(device) - reserved
+        _PROGRAMS.add(self)
+
+    def run(self, pixels: np.ndarray | torch.Tensor, maxval: int) -> list[OneDispatchState]:
+        """Copy the samples in and replay, on the current stream (after the
+        stream of the last replay, when it is another one)."""
+        with on_device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            if self.stream is not None and self.stream != stream:
+                stream.wait_stream(self.stream)
+            if not isinstance(pixels, torch.Tensor):
+                pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
+            self.input.copy_(pixels)
+            self.graph.replay()
+            self.stream = stream
+        for k, n in self.launches.items():
+            build.LAUNCHES[k] += n
+        build.REPLAYS[self.kind] += 1
+        return [dataclasses.replace(state) for state in self.states]
+
+
+def graph_bytes() -> int:
+    """Graph memory held by the live captured instances."""
+    return sum(p.bytes for p in list(_PROGRAMS))
+
+
+def _make_room() -> None:
+    """Keep the instances within GRAPH_MAX_BYTES before another is built:
+    drop every idle one when they hold that much, and raise when the
+    leased ones alone do."""
+    if graph_bytes() < GRAPH_MAX_BYTES:
+        return
+    with _LOCK:
+        for pool in list(_POOLS):
+            pool.idle.clear()
+    gc.collect()
+    if graph_bytes() >= GRAPH_MAX_BYTES:
+        raise RuntimeError(
+            f"one-dispatch programs in use hold {graph_bytes()} bytes of graph memory, at least "
+            f"GRAPH_MAX_BYTES ({GRAPH_MAX_BYTES}); finish or drop started states first")
+
+
+class _Pool:
+    """The captured instances of one program key: the idle ones, and
+    `make` to capture another when every instance is leased."""
+
+    def __init__(self, make: Callable[[], _Program]):
+        self.make = make
+        self.idle: list[_Program] = []
+        _POOLS.add(self)
+
+    def lease(self) -> _Program:
+        with _LOCK:
+            if self.idle:
+                return self.idle.pop()
+        _make_room()
+        return self.make()
+
+    def give_back(self, program: _Program) -> None:
+        with _LOCK:
+            self.idle.append(program)
+
+
+class _Lease:
+    """One start's hold on its instance, given back when the last of the
+    start's states is finished or collected."""
+
+    def __init__(self, pool: _Pool, program: _Program, n_states: int):
+        self.pool, self.program, self.left = pool, program, n_states
+
+    def release_one(self) -> None:
+        with _LOCK:
+            self.left -= 1
+            if self.left == 0:
+                self.pool.give_back(self.program)
+
+
+def _start(pool: _Pool, pixels, maxval: int) -> list[OneDispatchState]:
+    """Lease an instance of `pool`, run it on the samples, and tie its
+    lease to the states it returns."""
+    program = pool.lease()
+    try:
+        states = program.run(pixels, maxval)
+    except BaseException:
+        pool.give_back(program)
+        raise
+    lease = _Lease(pool, program, len(states))
+    for state in states:
+        state.release = weakref.finalize(state, lease.release_one)
+    return states
+
+
+def _pool(kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
+          enqueue: Callable) -> _Pool:
+    return _Pool(lambda: _Program(kind, shape, dtype, device, enqueue))
+
+
+@mode_keyed_cache(maxsize=32)
+def _compiled_onedispatch(height: int, width: int, preset: ChromaSubsamplingPreset,
+                          variant: DCTVariant, planar: bool, device: torch.device,
+                          dtype: torch.dtype, maxval: int, luma_key: tuple,
+                          chroma_key: tuple) -> _Pool:
+    """The single-image program: (the planar interleave,) `_enqueue`."""
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
+    lq, cq = _table(luma_key), _table(chroma_key)
+
+    def enqueue(x, state):
+        return _enqueue(interleaved(x, planar), 1, maxval, config, lq, cq, False, state)
+
+    return _pool("onedispatch", (3, height, width) if planar else (height, width, 3), dtype,
+                 device, enqueue)
+
+
+@mode_keyed_cache(maxsize=8)
+def _compiled_onedispatch_slab(n_images: int, height: int, width: int,
+                               preset: ChromaSubsamplingPreset, variant: DCTVariant, planar: bool,
+                               device: torch.device, dtype: torch.dtype, maxval: int,
+                               luma_key: tuple, chroma_key: tuple) -> _Pool:
+    """The slab program over an MCU-padded stack: the row stack (with the
+    planar interleave), `_enqueue` of the group."""
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
+    lq, cq = _table(luma_key), _table(chroma_key)
+    onepack = slab_onepack_enabled()
+    ph, pw = padded_size(height, width, preset)
+
+    def enqueue(x, state):
+        return _enqueue(stacked_rows(x, planar), n_images, maxval, config, lq, cq, onepack, state)
+
+    shape = (n_images, 3, ph, pw) if planar else (n_images, ph, pw, 3)
+    return _pool("onedispatch_slab", shape, dtype, device, enqueue)
+
+
+@mode_keyed_cache(maxsize=8)
+def _compiled_onedispatch_multi(n_images: int, height: int, width: int,
+                                preset: ChromaSubsamplingPreset, variant: DCTVariant, planar: bool,
+                                device: torch.device, dtype: torch.dtype, maxval: int,
+                                luma_key: tuple, chroma_key: tuple) -> _Pool:
+    """n_images full encodes in one program: the single-image `_enqueue`
+    once per image."""
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
+    lq, cq = _table(luma_key), _table(chroma_key)
+
+    def enqueue(x, state):
+        return [s for rgb in interleaved(x, planar).unbind(0)
+                for s in _enqueue(rgb, 1, maxval, config, lq, cq, False, state)]
+
+    shape = (n_images, 3, height, width) if planar else (n_images, height, width, 3)
+    return _pool("onedispatch_multi", shape, dtype, device, enqueue)
 
 
 def tables_from_spec(spec_syms, spec_lens, spec_ns):
@@ -343,7 +636,9 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
     """Return (scan_bytes, HuffmanTables): wait for the small copy of
     total_bits + table spec, then copy the needed words. `config` is
     accepted for the JAX package's call form and not read, as in
-    prefetch_one_dispatch.
+    prefetch_one_dispatch. On a card it then gives the start's program
+    instance back: the state's device tensors belong to the next start
+    that replays it.
 
     With DMMT_CHECK_BITS set, the packed bit count is cross-checked against
     the histograms x code lengths prediction (exact_scan_bits)."""
@@ -369,4 +664,7 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
                 f"one-dispatch packed {nbits} bits but histograms x device "
                 f"tables predict {predicted}"
             )
-    return finalize_scan_bytes(_fetch_words(state, (nbits + 31) // 32), nbits), tables
+    scan = finalize_scan_bytes(_fetch_words(state, (nbits + 31) // 32), nbits)
+    if state.release is not None:
+        state.release()  # its instance may replay again
+    return scan, tables

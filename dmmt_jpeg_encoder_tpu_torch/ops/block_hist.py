@@ -8,6 +8,9 @@ segments, counted in one launch as their concatenation without making
 it. A call needs no zero fill: the kernel's first CTA zeroes the output
 while the others count, and says so through a small state buffer that
 the wrapper keeps per stream (zeroed once, at the stream's first call).
+A captured CUDA graph bakes the state's pointer in, so a captured
+program owns its state: it allocates one with `new_state` before the
+capture and passes it as `state`, and no other graph or stream shares it.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -39,19 +42,33 @@ def block_histograms_plain(coeffs_zz: torch.Tensor) -> tuple[torch.Tensor, torch
     return dc_hist.to(torch.int32), ac_hist.to(torch.int32)
 
 
-def _state(device: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
-    key = (device.index, stream.cuda_stream)
-    if key not in _STATES:
-        _STATES[key] = torch.zeros(STATE_INTS, dtype=torch.int32, device=device)
-    return _STATES[key]
+def new_state(device: torch.device) -> torch.Tensor:
+    """A zeroed kernel state of one stream or one captured program."""
+    return torch.zeros(STATE_INTS, dtype=torch.int32, device=device)
+
+
+def kernel_state(device: torch.device, state: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """(the state a launch uses, the current stream's handle): `state` when
+    given (a captured program's own), else the current stream's."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if state is None:
+        key = (device.index, stream)
+        if key not in _STATES:
+            _STATES[key] = new_state(device)
+        state = _STATES[key]
+    elif state.device != device or state.dtype != torch.int32 or state.numel() != STATE_INTS:
+        raise ValueError(f"expected an int32 [{STATE_INTS}] state on {device}")
+    return state, stream
 
 
 def fused_block_histograms(
-    coeffs_zz: torch.Tensor | tuple[torch.Tensor, torch.Tensor], n_valid: int | None = None
+    coeffs_zz: torch.Tensor | tuple[torch.Tensor, torch.Tensor], n_valid: int | None = None,
+    state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dc_hist int32 [16], ac_hist int32 [256]) over the first `n_valid`
     (default: all) int16 [N, 64] zigzag blocks, DC already DPCM'd. A pair
-    of such tensors (Cb, Cr) counts as their concatenation."""
+    of such tensors (Cb, Cr) counts as their concatenation. `state`: the
+    kernel state to use (kernel_state), default the current stream's."""
     segments = (coeffs_zz,) if isinstance(coeffs_zz, torch.Tensor) else tuple(coeffs_zz)
     if not 1 <= len(segments) <= 2:
         raise ValueError(f"expected one or two segments of blocks, got {len(segments)}")
@@ -74,11 +91,11 @@ def fused_block_histograms(
     a, *rest = (s.contiguous() for s in segments)
     b = rest[0] if rest else None
     n_a = min(n_valid, sizes[0])
-    stream = torch.cuda.current_stream(dev)
+    state, stream = kernel_state(dev, state)
     out = torch.empty(16 + 256, dtype=torch.int32, device=dev)
     err = build.load().dmmt_block_hist(
         a.data_ptr(), n_a, None if b is None else b.data_ptr(), n_valid - n_a,
-        _state(dev, stream).data_ptr(), out.data_ptr(), stream.cuda_stream,
+        state.data_ptr(), out.data_ptr(), stream,
     )
     build.check(err, "dmmt_block_hist")
     build.LAUNCHES["block_hist"] += 1

@@ -13,7 +13,7 @@ no zero fill: the kernel's first CTA zeroes the output while the others
 count, and says so through the small per-stream state of the
 block-histogram kernel (ops/block_hist.py), whose protocol it shares: each
 call leaves the state ready for the next on its stream, whichever of the
-two kernels that is.
+two kernels that is. A captured program passes its own state, as there.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .block_hist import _state
+from .block_hist import kernel_state
 
 
 def histogram_grouped_plain(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -39,9 +39,11 @@ def histogram_grouped_plain(symbols: torch.Tensor, weights: torch.Tensor, n_bins
     return out.reshape(g, n_bins).to(torch.int32)
 
 
-def histogram_grouped(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
+def histogram_grouped(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int,
+                      state: torch.Tensor | None = None) -> torch.Tensor:
     """Per-group weighted histograms: int [G, M] symbols and integer [G, M]
-    weights -> int32 [G, n_bins]."""
+    weights -> int32 [G, n_bins]. `state`: the kernel state to use
+    (block_hist.kernel_state), default the current stream's."""
     if symbols.ndim != 2 or weights.shape != symbols.shape:
         raise ValueError(f"expected [G, M] symbols and weights, got {tuple(symbols.shape)} "
                          f"and {tuple(weights.shape)}")
@@ -54,18 +56,18 @@ def histogram_grouped(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int)
     g, m = (int(x) for x in symbols.shape)
     sym = symbols.to(torch.int32).contiguous()
     w = weights.to(device=sym.device, dtype=torch.int32).contiguous()
-    stream = torch.cuda.current_stream(sym.device)
+    state, stream = kernel_state(sym.device, state)
     out = torch.empty((g, n_bins), dtype=torch.int32, device=sym.device)
     err = build.load().dmmt_histogram_grouped(
-        sym.data_ptr(), w.data_ptr(), g, m, n_bins, _state(sym.device, stream).data_ptr(),
-        out.data_ptr(), stream.cuda_stream,
+        sym.data_ptr(), w.data_ptr(), g, m, n_bins, state.data_ptr(), out.data_ptr(), stream,
     )
     build.check(err, "dmmt_histogram_grouped")
     build.LAUNCHES["histogram"] += 1
     return out
 
 
-def histogram(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
+def histogram(symbols: torch.Tensor, weights: torch.Tensor, n_bins: int,
+              state: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted histogram of int symbols of any shape (weights of the same
     shape) -> int32 [n_bins]."""
-    return histogram_grouped(symbols.reshape(1, -1), weights.reshape(1, -1), n_bins)[0]
+    return histogram_grouped(symbols.reshape(1, -1), weights.reshape(1, -1), n_bins, state)[0]

@@ -36,15 +36,16 @@ from ..config import EncoderConfig
 from ..encoder import _use_one_dispatch, slab_gate
 from .sharding import onedispatch_allowed
 
-# (rows, ms) single-image one-dispatch program floors, 3840 wide: NVIDIA
-# H100 80GB HBM3, 700.00 W, 2026-10-17, tools.projection_grid --rounds 11
-# (one process with MEASURED_T_SLAB_MS).
+# (rows, ms) single-image one-dispatch program floors, 3840 wide, each
+# program one CUDA graph replay (onedispatch.py): NVIDIA H100 80GB HBM3,
+# 700.00 W, 2026-10-17, tools.projection_grid --rounds 11 (one process
+# with MEASURED_T_SLAB_MS).
 MEASURED_T_MS: tuple[tuple[int, float], ...] = (
-    (272, 2.7154564999998243),
-    (544, 2.913239999999817),
-    (1088, 2.98240962499996),
-    (2176, 2.9405676250000568),
-    (4320, 2.5719940000001884),
+    (272, 1.1226726250015417),
+    (544, 1.14639162499941),
+    (1088, 1.1782509999989088),
+    (2176, 1.2793114999993804),
+    (4320, 1.4598717500007297),
 )
 
 # (slab_b, rows_per_image) -> ms per PROGRAM of a B-image row-stacked slab
@@ -53,42 +54,42 @@ MEASURED_T_MS: tuple[tuple[int, float], ...] = (
 # within onedispatch.slab_max_blocks(): NVIDIA H100 80GB HBM3, 700.00 W,
 # 2026-10-17, tools.projection_grid --rounds 11 (same process as above).
 MEASURED_T_SLAB_MS: dict[tuple[int, int], float] = {
-    (2, 272): 3.4704449999978237,
-    (4, 272): 3.3313564999986056,
-    (8, 272): 3.2982689999982995,
-    (12, 272): 3.8123090000006243,
-    (16, 272): 4.436116999997353,
-    (32, 272): 5.897800500001438,
-    (48, 272): 8.098007499999227,
-    (64, 272): 9.311051000000958,
-    (2, 544): 2.7495980000011855,
-    (4, 544): 3.127213499997339,
-    (8, 544): 3.513082000001333,
-    (16, 544): 4.334035999999486,
-    (32, 544): 6.302791999999613,
-    (2, 1088): 2.8516464999981395,
-    (4, 1088): 3.2739799999994545,
-    (8, 1088): 4.021105500001454,
-    (16, 1088): 5.788561500001066,
-    (17, 1088): 4.439312500000625,
-    (2, 2160): 2.8481364999990433,
-    (4, 2160): 3.4134719999983076,
-    (8, 2160): 3.990914999999262,
-    (16, 2160): 4.8263900000016235,
+    (2, 272): 1.226593000012599,
+    (4, 272): 1.3717715000041153,
+    (8, 272): 1.5971010000157548,
+    (12, 272): 1.7566815000122915,
+    (16, 272): 1.975552999994079,
+    (32, 272): 2.777033499995696,
+    (48, 272): 3.6334225000018705,
+    (64, 272): 4.413849999991726,
+    (2, 544): 1.2670115000048554,
+    (4, 544): 1.4132819999872481,
+    (8, 544): 1.72591000000466,
+    (16, 544): 2.336650500012638,
+    (32, 544): 3.4681820000059815,
+    (2, 1088): 1.3454999999851225,
+    (4, 1088): 1.677317999991601,
+    (8, 1088): 2.1431400000153644,
+    (16, 1088): 3.1704090000062024,
+    (17, 1088): 3.253312499992944,
+    (2, 2160): 1.5140120000012303,
+    (4, 2160): 2.0274175000167816,
+    (8, 2160): 2.850399000010384,
+    (16, 2160): 4.575102000018205,
 }
 
 # Per-extra-image overhead inside one slab program (ms/image beyond
 # T(B*rows)), used ONLY for (B, rows) points absent from the grid; derived
 # as the JAX comment derives it, from the B=8 x 272 slab against the
 # equal-height single image: (T_slab(8, 272) - T(2176)) / 7.
-SLAB_OVERHEAD_MS_PER_IMAGE = 0.05110019642832039
+SLAB_OVERHEAD_MS_PER_IMAGE = 0.0453985000023392
 
 # What the sharded encode moves between its shards at n = 2 (the DC
 # hand-off, the histograms to the first shard and their sum, the tables
 # back): bench._collective_ms, same-card copies (one card; a cross-card
 # figure needs a machine with several cards), NVIDIA H100 80GB HBM3,
 # 700.00 W, 2026-10-17, tools.projection_grid --rounds 11.
-COLLECTIVE_MS = 0.015560033285710765
+COLLECTIVE_MS = 0.017174623192334038
 
 
 def t_program_ms(rows: int) -> float:

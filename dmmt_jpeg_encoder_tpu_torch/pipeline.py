@@ -252,6 +252,38 @@ def interleaved(rgb: torch.Tensor, planar: bool) -> torch.Tensor:
     return rgb.movedim(-3, -1).contiguous() if planar else rgb
 
 
+def mcu_padded_stack(
+    pixels_stack: np.ndarray | torch.Tensor,
+    maxval: int,
+    preset: ChromaSubsamplingPreset,
+) -> np.ndarray | torch.Tensor:
+    """[B, H, W, 3] or channel-planar [B, 3, H, W] samples pre-padded
+    (black) to the preset's MCU multiple, in their own layout: a host
+    array is padded here; a tensor must already be padded."""
+    b = int(pixels_stack.shape[0])
+    planar, height, width = image_layout(pixels_stack.shape[1:])
+    ph, pw = padded_size(height, width, preset)
+    if (ph, pw) == (height, width):
+        return pixels_stack
+    if isinstance(pixels_stack, torch.Tensor):
+        raise ValueError(f"a slab tensor must be MCU-padded: {height}x{width} -> {ph}x{pw}")
+    dtype = narrow_pixels(pixels_stack[:1], maxval).dtype
+    if planar:
+        padded = np.zeros((b, 3, ph, pw), dtype=dtype)
+        padded[:, :, :height, :width] = narrow_pixels(pixels_stack, maxval)
+    else:
+        padded = np.zeros((b, ph, pw, 3), dtype=dtype)
+        padded[:, :height, :width] = narrow_pixels(pixels_stack, maxval)
+    return padded
+
+
+def stacked_rows(stack: torch.Tensor, planar: bool) -> torch.Tensor:
+    """An MCU-padded [B, PH, PW, 3] (or planar [B, 3, PH, PW]) stack on the
+    device -> its [B * PH, PW, 3] row stack; a planar stack is interleaved."""
+    rgb = interleaved(stack, planar)
+    return rgb.reshape(-1, int(rgb.shape[2]), 3)
+
+
 def row_stack(
     pixels_stack: np.ndarray | torch.Tensor,
     maxval: int,
@@ -260,24 +292,11 @@ def row_stack(
 ) -> torch.Tensor:
     """[B, H, W, 3] or channel-planar [B, 3, H, W] samples -> the
     [B * PH, PW, 3] row stack of the images pre-padded (black) to the
-    preset's MCU multiple, on the device. A host array is padded here in
-    its own layout and uploaded as one copy; a tensor must already be
-    padded. A planar stack is interleaved on the device."""
-    b = int(pixels_stack.shape[0])
-    planar, height, width = image_layout(pixels_stack.shape[1:])
-    ph, pw = padded_size(height, width, preset)
-    if (ph, pw) != (height, width):
-        if isinstance(pixels_stack, torch.Tensor):
-            raise ValueError(f"a slab tensor must be MCU-padded: {height}x{width} -> {ph}x{pw}")
-        dtype = narrow_pixels(pixels_stack[:1], maxval).dtype
-        if planar:
-            padded = np.zeros((b, 3, ph, pw), dtype=dtype)
-            padded[:, :, :height, :width] = narrow_pixels(pixels_stack, maxval)
-        else:
-            padded = np.zeros((b, ph, pw, 3), dtype=dtype)
-            padded[:, :height, :width] = narrow_pixels(pixels_stack, maxval)
-        pixels_stack = padded
-    return interleaved(as_device(pixels_stack, maxval, device), planar).reshape(b * ph, pw, 3)
+    preset's MCU multiple, on the device (mcu_padded_stack, uploaded as one
+    copy, then stacked_rows)."""
+    planar, _, _ = image_layout(pixels_stack.shape[1:])
+    stack = mcu_padded_stack(pixels_stack, maxval, preset)
+    return stacked_rows(as_device(stack, maxval, device), planar)
 
 
 def run_device_pipeline_batch(

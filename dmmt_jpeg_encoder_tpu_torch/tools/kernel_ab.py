@@ -429,6 +429,9 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     from .. import onedispatch
     from ..bitstream import device_pack, emission_pack
     from ..ops import block_hist, fused, fused_arai, fused_phase1, histogram, mxu_dct, pallas_dct
+    from ..pipeline import row_stack
+    from ..tables import quantization_table_pair
+    from ..utils.device import as_device
     from torch_port_fixtures import BATCH_FIXTURES, batch_frames, fixture_pixels
 
     calls: list = []
@@ -450,28 +453,30 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         return wrapped
 
     def grab_phase1(real):
-        def wrapped(rgb, maxval, luma_q, chroma_q, preset):
+        # fused_phase1 also takes `split` (DMMT_P1_PREC=high), timed unsplit here
+        def wrapped(rgb, maxval, luma_q, chroma_q, preset, *split):
             calls.append((_contig(rgb), maxval, _contig(luma_q), _contig(chroma_q), preset))
-            return real(rgb, maxval, luma_q, chroma_q, preset)
+            return real(rgb, maxval, luma_q, chroma_q, preset, *split)
         return wrapped
 
     def grab_hist(real):
-        def wrapped(coeffs_zz, n_valid=None):
+        def wrapped(coeffs_zz, n_valid=None, state=None):
             segs = coeffs_zz if isinstance(coeffs_zz, (tuple, list)) else (coeffs_zz,)
             hist_calls.append(tuple(_contig(x) for x in segs))
-            return real(coeffs_zz, n_valid)
+            return real(coeffs_zz, n_valid, state)
         return wrapped
 
     def grab_mm(real):
-        def wrapped(plane, qtable):
+        # plane_dct_quant_mxu also takes split=, timed unsplit here
+        def wrapped(plane, qtable, **split):
             calls.append((_contig(plane), qtable.to(plane.device).contiguous()))
-            return real(plane, qtable)
+            return real(plane, qtable, **split)
         return wrapped
 
     def grab_weighted(real):
-        def wrapped(symbols, weights, n_bins):
+        def wrapped(symbols, weights, n_bins, state=None):
             calls.append((_contig(symbols.to(torch.int32)), _contig(weights.to(torch.int32)), n_bins))
-            return real(symbols, weights, n_bins)
+            return real(symbols, weights, n_bins, state)
         return wrapped
 
     def grab_emissions(real):
@@ -492,11 +497,25 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     cfg = port.EncoderConfig(chroma_subsampling=port.ChromaSubsamplingPreset.P420)
     fb = BATCH_FIXTURES["batch_1080p_p420"]
     frames = batch_frames("batch_1080p_p420")
+    lq, cq = quantization_table_pair(cfg.quantization_preset, cfg.quality)
+
+    def encode_eager(config, slab=False):
+        """The one-dispatch encode of the 4K frame (the 1080p batch as one
+        slab) op by op, onedispatch._enqueue, so that every wrapper call
+        passes the grabs: a start on a card replays a captured graph."""
+        if slab:
+            rgb = row_stack(np.stack(frames), fb["maxval"], config.chroma_subsampling, dev)
+            states = onedispatch._enqueue(rgb, len(frames), fb["maxval"], config, lq, cq,
+                                          onedispatch.slab_onepack_enabled())
+        else:
+            rgb = as_device(px, 255, dev)
+            states = onedispatch._enqueue(rgb, 1, 255, config, lq, cq, False)
+        for state in states:
+            onedispatch.finish_one_dispatch(state)
     inputs = {}
     if "dct" in kinds:
         with _patched(fused, "fused_dct_quantize_zigzag", grab_dct):
-            port.encode_array(px, 255, dataclasses.replace(cfg, dct_variant=port.DCTVariant.FUSED),
-                              device=dev)
+            encode_eager(dataclasses.replace(cfg, dct_variant=port.DCTVariant.FUSED))
         inputs["block_dct_zz 4k_p420 FUSED (luma, Cb, Cr)"] = ("dct", calls[:])
         calls.clear()
     if "lookup" in kinds:
@@ -516,7 +535,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         with _patched(fused_arai, "fused_arai_phase1", grab_phase1), \
                 _patched(onedispatch, "fused_pack_words", grab_pack), \
                 _patched(block_hist, "fused_block_histograms", grab_hist):
-            port.encode_array(px, 255, cfg, device=dev)
+            encode_eager(cfg)
         p1, pack = calls
         calls.clear()
         if "phase1" in kinds:
@@ -532,7 +551,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         os.environ["DMMT_P1"] = "fused1"
         try:
             with _patched(fused_phase1, "fused_phase1", grab_phase1):
-                port.encode_array(px, 255, cfg, device=dev)
+                encode_eager(cfg)
         finally:
             os.environ.pop("DMMT_P1")
         inputs["phase1_mm 4k_p420 (uint8 P420, DMMT_P1=fused1)"] = ("phase1_mm", calls[:])
@@ -541,7 +560,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         os.environ["DMMT_SLAB_ONEPACK"] = "1"
         try:
             with _patched(onedispatch, "fused_pack_words_slab", grab_pack):
-                port.encode_batch(frames, fb["maxval"], cfg, device=dev)
+                encode_eager(cfg, slab=True)
         finally:
             os.environ.pop("DMMT_SLAB_ONEPACK")
         (slab,) = calls
@@ -554,7 +573,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         os.environ["DMMT_P1"] = "mxu"
         try:
             with _patched(mxu_dct, "plane_dct_quant_mxu", grab_mm):
-                port.encode_array(px, 255, cfg, device=dev)
+                encode_eager(cfg)
         finally:
             os.environ.pop("DMMT_P1")
         inputs["plane_dct_mm 4k_p420 DMMT_P1=mxu (Cb, Cr stacked; luma)"] = ("plane_dct_mm", calls[:])
@@ -589,7 +608,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         os.environ["DMMT_P1"] = "pallas"
         try:
             with _patched(pallas_dct, "plane_dct_quant", grab_mm):
-                port.encode_array(px, 255, cfg, device=dev)
+                encode_eager(cfg)
         finally:
             os.environ.pop("DMMT_P1")
         inputs["plane_dct 4k_p420 DMMT_P1=pallas (Cb, Cr stacked; luma)"] = ("plane_dct", calls[:])

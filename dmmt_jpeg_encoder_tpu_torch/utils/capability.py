@@ -1,4 +1,4 @@
-"""Kernel capability probe: can this device run the port's CUDA kernels?
+"""Kernel capability probe, and the mode key of captured programs.
 
 Counterpart of dmmt_jpeg_encoder_tpu.utils.capability (`pallas_capable`,
 `_probe_lowering`). The JAX package lowered a trivial pallas_call once per
@@ -13,12 +13,28 @@ XLA paths. Here `kernels_capable(device)` answers per device:
   result checked against x + 1; True once it has passed. A failed build,
   launch or check raises: the port never hides the card behind a fallback.
 
-DMMT_PALLAS_INTERPRET, DMMT_FORCE_PALLAS, trace_mode_key and
-mode_keyed_cache have no counterpart: the port traces no programs, and no
-byte depends on them.
+`trace_mode_key()` and `mode_keyed_cache(maxsize)` are the counterparts of
+the JAX package's: every cache of captured one-dispatch programs
+(onedispatch.py's CUDA graphs) keys on the environment modes baked into
+a capture, so that a mode toggled after the first capture at a geometry
+takes effect. The key holds every knob that the one-dispatch enqueue
+reads (DMMT_P1, DMMT_HIST, DMMT_P1_PREC, DMMT_SLAB_ONEPACK), and
+DMMT_NO_FUSED_PACK, which the JAX key holds and which neither package's
+one-dispatch program reads. The JAX key's other entries have no
+counterpart: DMMT_FUSED1_TILEW (the TPU kernel's tile width; K10's tiling
+is fixed), DMMT_PALLAS_INTERPRET and pallas_capable() (a graph is
+captured only on a card, whose kernels always run; the CPU runs the plain
+versions eagerly), DMMT_TABLE_ABLATE (a TPU timing ablation the port
+does not carry) and DMMT_SWEEP / DMMT_SWEEP_HEAD (the TPU pack's table
+sweep; K3 holds the whole tables in shared memory). DMMT_FORCE_PALLAS has
+no counterpart either: a card's probe failure raises.
 """
 
 from __future__ import annotations
+
+import functools
+import os
+from functools import lru_cache
 
 import torch
 
@@ -28,6 +44,39 @@ PROBE_SHAPE = (8, 128)
 
 # CUDA device indices whose probe passed in this process
 _CAPABLE: set[int] = set()
+
+
+def trace_mode_key() -> tuple:
+    """Everything from the environment that is baked into a captured
+    one-dispatch program (the module docstring lists it). Any cache that
+    holds such a program keys on this (mode_keyed_cache)."""
+    return (
+        os.environ.get("DMMT_P1", "plane"),
+        os.environ.get("DMMT_HIST", "fused"),
+        os.environ.get("DMMT_P1_PREC", "highest"),
+        os.environ.get("DMMT_SLAB_ONEPACK", "0"),
+        bool(os.environ.get("DMMT_NO_FUSED_PACK")),
+    )
+
+
+def mode_keyed_cache(maxsize: int):
+    """`lru_cache` whose key silently includes trace_mode_key(): decorate a
+    program cache once, so that no cache can forget the modes."""
+
+    def deco(fn):
+        @lru_cache(maxsize=maxsize)
+        def keyed(_mode, *args, **kw):
+            return fn(*args, **kw)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            return keyed(trace_mode_key(), *args, **kw)
+
+        wrapper.cache_clear = keyed.cache_clear
+        wrapper.cache_info = keyed.cache_info
+        return wrapper
+
+    return deco
 
 
 def probe_add_one(x: torch.Tensor) -> torch.Tensor:

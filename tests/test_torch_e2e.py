@@ -245,6 +245,10 @@ def test_port_imports_no_jax():
         " '--rounds', '1', '--device-only', '--no-8k', '--no-slab']) == 0\n"
         "from dmmt_jpeg_encoder_tpu_torch.parallel import projection\n"
         "assert [r['chips'] for r in projection.projected_scaling_table(slab_b=None)] == [1, 2, 4, 8]\n"
+        "assert capability.trace_mode_key()[0] == 'plane'\n"
+        "pool = od._compiled_onedispatch(16, 24, cfg.chroma_subsampling, cfg.dct_variant, False,"
+        " *od.program_key(px, 255, lq, cq, torch.device('cuda', 0)))\n"
+        "assert pool.idle == [] and od.graph_bytes() == 0\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
         " or m == 'dmmt_jpeg_encoder_tpu']\n"
         "assert not bad, bad\n"
