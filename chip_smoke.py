@@ -134,9 +134,23 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    --shards 2 (and its refusal of --device cuda on too few cards); the
    same across distinct cards where the machine has them; the
    multi-process encode (parallel/multihost.py) in two gloo processes;
-   every JPEG held against the JAX goldens; then what sharding costs on
-   one card: the warm 4K encode at 1, 2 and 4 shards and the 16 x 1080p
-   batch as slab and as sharded slab;
+   every JPEG held against the JAX goldens; with its shards on one card
+   each sharded one-dispatch start and sharded slab call is exactly one
+   replay of a captured program (parallel/sharding.py's
+   _compiled_sharded_onedispatch and _compiled_sharded_onedispatch_slab;
+   build.REPLAYS "sharded_onedispatch" and "sharded_onedispatch_slab";
+   none on the two-dispatch paths) with the kernel counts of
+   sharded_launches, and its JPEGs equal the eager enqueue's
+   (sharding._start, op by op, as across distinct cards); then what
+   sharding costs on one card: the warm 4K encode at 1, 2 and 4 shards and
+   the 16 x 1080p batch as slab and as sharded slab; two sharded starts in
+   flight on two rolled 4K frames, finished in reverse order, each against
+   its frame's two-dispatch bytes; DMMT_HIST=pallas toggled after the
+   first sharded capture at 4K and back; then, eager enqueue against
+   replay in 10 alternating rounds at n = 2 and 4 on one card, one sharded
+   start's host time, the program floor (8 starts in flight on pixels
+   already on the card, per image), the 4K e2e and the 16 x 1080p sharded
+   slab, and the graphs' bytes;
 6. the port's bench stage, `python -m dmmt_jpeg_encoder_tpu_torch.bench
    --rounds 3` in its own process: it must exit 0 (no stage or candidate
    failed, every timed JPEG equal to its reference) with every metric of
@@ -1616,9 +1630,24 @@ def main() -> int:
     # --- 5. the sharded encode (parallel/sharding.py) ------------------------
     # n shards on card 0 (a device list that repeats it); each path starts
     # with no card probed, so its capability probe shows in its counts
-    def run_sharded(label, fn, expect):
+    def run_sharded(label, fn, expect, replayed):
         capability._CAPABLE.clear()
-        return run_path(label, fn, expect)
+        return run_path(label, fn, expect, replayed)
+
+    @contextlib.contextmanager
+    def eager_sharded():
+        """The sharded starts enqueue op by op, as across distinct cards
+        (sharding._start), in place of a program replay."""
+        real = sharding._program_card
+        sharding._program_card = lambda pixels, devices: None
+        try:
+            yield
+        finally:
+            sharding._program_card = real
+
+    def check_eager(label, graph, eager):
+        if graph != eager:
+            raise AssertionError(f"{label}: the replayed JPEGs differ from the eager enqueue's")
 
     def on_card(n):
         return [f"cuda:{dev.index or 0}"] * n
@@ -1646,12 +1675,18 @@ def main() -> int:
         ):
             saved_bound, onedispatch.MAX_DEVICE_TABLE_SYMBOLS = onedispatch.MAX_DEVICE_TABLE_SYMBOLS, table_bound
             two_dispatch_runs.clear()
+            def fixtures_at(n=n, kw=kw):
+                return {name: port.encode_array(images[name], f["maxval"],
+                                                sharded_cfg(configs[name], n, **kw), device=on_card(n))
+                        for name, f in FIXTURES.items()}
+
             try:
-                outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}", lambda: {
-                    name: port.encode_array(images[name], f["maxval"], sharded_cfg(configs[name], n, **kw),
-                                            device=on_card(n))
-                    for name, f in FIXTURES.items()
-                }, sharded_launches(n, 1, 1, times=n_fix))
+                outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}",
+                                      fixtures_at, sharded_launches(n, 1, 1, times=n_fix),
+                                      {} if two else {"sharded_onedispatch": n_fix})
+                if not two:
+                    with eager_sharded():
+                        check_eager(f"sharded n={n} {label}", outputs, fixtures_at())
             finally:
                 onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved_bound
             if len(two_dispatch_runs) != two:
@@ -1662,24 +1697,30 @@ def main() -> int:
     sharding._finish_twodispatch = real_finish
     simple_golden = route_goldens["dct_simple"]["4k_p420"]["jpeg_sha256"]
     for n in (2, 4):
-        for label, env, kw, expect, want in (
+        for label, env, kw, expect, want, replayed in (
             ("staged pack (DMMT_NO_FUSED_PACK=1)", {"DMMT_NO_FUSED_PACK": "1"}, {},
-             sharded_launches(n, 1, 1, pack="staged"), None),
+             sharded_launches(n, 1, 1, pack="staged"), None, 0),
             ("DMMT_HIST=pallas", {"DMMT_HIST": "pallas"}, {}, sharded_launches(n, 1, 1, hist="pallas"),
-             None),
+             None, 1),
             ("host scan backend", {}, {"scan_backend": "host"}, sharded_launches(n, 1, 1, pack="host"),
-             None),
+             None, 0),
             ("DMMT_P1=mxu, DMMT_P1_PREC=high (ignored: the default bytes)",
              {"DMMT_P1": "mxu", "DMMT_P1_PREC": "high"}, {},
-             sharded_launches(n, 1, 1), None),
+             sharded_launches(n, 1, 1), None, 1),
             ("FUSED (the Arai phase 1: the default bytes)", {}, {"dct_variant": port.DCTVariant.FUSED},
-             sharded_launches(n, 1, 1), None),
+             sharded_launches(n, 1, 1), None, 1),
             ("SIMPLE", {}, {"dct_variant": port.DCTVariant.SIMPLE},
-             sharded_launches(n, 1, 1, p1=("plane_dct_mm", 2)), simple_golden),
+             sharded_launches(n, 1, 1, p1=("plane_dct_mm", 2)), simple_golden, 1),
         ):
+            def encode_4k(n=n, kw=kw):
+                return port.encode_array(four_k, 255, sharded_cfg(cfg4, n, **kw), device=on_card(n))
+
             with scoped_env(env):
-                jpeg = run_sharded(f"4k_p420 sharded n={n} on one card, {label}", lambda: port.encode_array(
-                    four_k, 255, sharded_cfg(cfg4, n, **kw), device=on_card(n)), expect)
+                jpeg = run_sharded(f"4k_p420 sharded n={n} on one card, {label}", encode_4k, expect,
+                                   {"sharded_onedispatch": replayed} if replayed else {})
+                if replayed:
+                    with eager_sharded():
+                        check_eager(f"4k_p420 sharded n={n} {label}", jpeg, encode_4k())
             if want is None:
                 check_golden("4k_p420", jpeg, f"sharded n={n} {label}")
             elif sha256(jpeg) != want:
@@ -1694,16 +1735,27 @@ def main() -> int:
     groups = -(-fb["n"] // depth)
     if depth < 2:
         raise AssertionError(f"batch_1080p_p420 sharded: the gate chose depth {depth}")
-    for arm, env, expect in (
+    # the slab groups of `depth` and a trailing single image: one replay each
+    sizes = [min(depth, fb["n"] - i) for i in range(0, fb["n"], depth)]
+    slab_replays = {"sharded_onedispatch_slab": sum(k > 1 for k in sizes),
+                    "sharded_onedispatch": sum(k == 1 for k in sizes)}
+
+    def sharded_batch():
+        return port.encode_batch(frames_b, fb["maxval"], cfg_b, device=on_card(2))
+
+    for arm, env, expect, replayed in (
         (f"sharded slab (depth {depth})", {"DMMT_SLAB_ONEPACK": "0"},
-         sharded_launches(2, fb["n"], groups)),
+         sharded_launches(2, fb["n"], groups), slab_replays),
         (f"sharded slab one-pack (depth {depth})", {"DMMT_SLAB_ONEPACK": "1"},
-         sharded_launches(2, fb["n"], groups, pack="slab")),
-        ("sharded per image (DMMT_SLAB=0)", {"DMMT_SLAB": "0"}, sharded_launches(2, fb["n"], fb["n"])),
+         sharded_launches(2, fb["n"], groups, pack="slab"), slab_replays),
+        ("sharded per image (DMMT_SLAB=0)", {"DMMT_SLAB": "0"}, sharded_launches(2, fb["n"], fb["n"]),
+         {"sharded_onedispatch": fb["n"]}),
     ):
         with scoped_env(env):
-            out = run_sharded(f"batch_1080p_p420 n=2 on one card, {arm}", lambda: port.encode_batch(
-                frames_b, fb["maxval"], cfg_b, device=on_card(2)), expect)
+            out = run_sharded(f"batch_1080p_p420 n=2 on one card, {arm}", sharded_batch, expect,
+                              {k: v for k, v in replayed.items() if v})
+            with eager_sharded():
+                check_eager(f"batch_1080p_p420 n=2 {arm}", out, sharded_batch())
         if [sha256(j) for j in out] != want:
             raise AssertionError(f"batch_1080p_p420 n=2 {arm}: cuda JPEGs differ from the JAX goldens")
         log(f"batch_1080p_p420 n=2 {arm}: every frame == JAX golden")
@@ -1732,7 +1784,7 @@ def main() -> int:
             log(f"sharded n={n} across distinct cards: not run ({torch.cuda.device_count()} card(s))")
             continue
         jpeg = run_sharded(f"4k_p420 sharded n={n} across {n} cards", lambda: port.encode_array(
-            four_k, 255, sharded_cfg(cfg4, n), device="cuda"), sharded_launches(n, 1, 1, probes=n))
+            four_k, 255, sharded_cfg(cfg4, n), device="cuda"), sharded_launches(n, 1, 1, probes=n), {})
         check_golden("4k_p420", jpeg, f"sharded n={n} across {n} cards")
 
     # the multi-process encode: two gloo processes on card 0
@@ -1800,36 +1852,123 @@ def main() -> int:
         batch_ms = wall_ms(lambda: port.encode_batch(frames_b, fb["maxval"], cfg, device=device))
         log(f"batch_1080p_p420 encode_batch {label}: median {batch_ms:.3f} ms of 3, "
             f"{mpix_b / batch_ms * 1e3:.1f} Mpix/s on {gpu}")
-    # where a sharded encode's host time goes (2 shards on one card): the
-    # staging and upload alone; the start (staging, upload and the enqueue
-    # of all device work, run to its end); the finish (fetches, bit-merge,
-    # byte stuffing, table decode)
-    devices2 = sharding.shard_devices(on_card(2), 2)
-    for label, frames_s, cfg_s, start, finish in (
-        ("4k_p420", [four_k], sharded_cfg(cfg4, 2),
-         lambda fr, c: sharding.start_sharded_encode(fr[0], 255, c, devices2),
-         sharding.finish_sharded_encode),
-        ("batch_1080p_p420", frames_b, cfg_b,
-         lambda fr, c: sharding.start_sharded_encode_slab(fr, 255, c, devices2),
-         sharding.finish_sharded_encode_slab),
-    ):
-        h, w = frames_s[0].shape[:2]
-        geom = sharding.Geometry.of(h, w, cfg_s.chroma_subsampling, 2)
-        rows = []
-        for _ in range(6):
-            t0 = time.perf_counter()
-            sharding.upload_slabs(frames_s, 255, geom, devices2)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            state = start(frames_s, cfg_s)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            finish(state, cfg_s)
-            rows.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
-        up, st, fin = (statistics.median(c) * 1e3 for c in zip(*rows[1:]))
-        log(f"{label} sharded n=2 on one card, host stages: staging + upload {up:.3f} ms; start "
-            f"(staging, upload, all device work) {st:.3f} ms; finish (fetches, bit-merge, stuffing) "
-            f"{fin:.3f} ms; median of 5 on {gpu}")
+    # the sharded programs (CUDA graphs, parallel/sharding.py): two starts in
+    # flight on two rolled 4K frames, finished in reverse order, each
+    # against its frame's two-dispatch bytes; then DMMT_HIST=pallas toggled
+    # after the first capture and back
+    cfg2 = sharded_cfg(cfg4, 2)
+
+    def sharded_in_flight():
+        states = [sharding.start_sharded_encode(fr, 255, cfg2, on_card(2)) for fr in rolled[:2]]
+        return [jpeg_bytes(four_k.shape, cfg2, lq4, cq4, *sharding.finish_sharded_encode(st, cfg2))
+                for st in states[::-1]][::-1]
+
+    if run_sharded("4k_p420 x 2 rolled frames, 2 sharded starts (n=2) in flight, finished in reverse",
+                   sharded_in_flight, sharded_launches(2, 1, 1, times=2),
+                   {"sharded_onedispatch": 2}) != refs[:2]:
+        raise AssertionError("2 sharded starts in flight: a JPEG differs from its frame's "
+                             "two-dispatch bytes")
+    log("4k_p420 x 2 rolled frames, 2 sharded starts (n=2) in flight, finished in reverse order: "
+        "each JPEG == its frame's two-dispatch bytes")
+    sharding._compiled_sharded_onedispatch.cache_clear()
+    for hist, expect in ((None, sharded_launches(2, 1, 1)),
+                         ("pallas", sharded_launches(2, 1, 1, hist="pallas")),
+                         (None, sharded_launches(2, 1, 1))):
+        label = f"4k_p420 sharded n=2, DMMT_HIST {hist or 'unset'}"
+        with scoped_env({"DMMT_HIST": hist} if hist else {}):
+            jpeg = run_sharded(label, lambda: port.encode_array(four_k, 255, cfg2, device=on_card(2)),
+                               expect, {"sharded_onedispatch": 1})
+        check_golden("4k_p420", jpeg, label)
+    if sharding._compiled_sharded_onedispatch.cache_info().currsize != 2:
+        raise AssertionError(f"DMMT_HIST toggled: {sharding._compiled_sharded_onedispatch.cache_info()}")
+    log("DMMT_HIST toggled to pallas after the first sharded capture at 4K, then back: the weighted "
+        "histograms' counts, then the block histograms' again, from two cache entries")
+
+    # before (the eager enqueue, op by op) against after (one replay), in
+    # alternating rounds at n = 2 and 4 on one card: one sharded start's
+    # host time (host array in, small copy enqueued); the program floor (8
+    # starts in flight on pixels already on the card, one wait for the last
+    # small copy, per image); the 4K e2e; the 16 x 1080p sharded slab
+    for n in (2, 4):
+        cfg_n, devs = sharded_cfg(cfg4, n), sharding.shard_devices(on_card(n), n)
+        cfg_bn = sharded_cfg(config_of(fb), n)
+        geom = sharding.Geometry.of(*four_k.shape[:2], cfg4.chroma_subsampling, n)
+        padded = torch.zeros((geom.ph, geom.pw, 3), dtype=torch.uint8, device=dev)
+        padded[: four_k.shape[0], : four_k.shape[1]] = dpx
+        pool = sharding._compiled_sharded_onedispatch(
+            *four_k.shape[:2], cfg4.chroma_subsampling, cfg4.dct_variant, n,
+            *onedispatch.program_key(four_k, 255, lq4, cq4, devs[0]))
+
+        def arm_ctx(arm):
+            return eager_sharded() if arm == "eager" else contextlib.nullcontext()
+
+        def start(arm):
+            with arm_ctx(arm):
+                return sharding.start_sharded_encode(four_k, 255, cfg_n, devs)
+
+        def floor_start(arm):
+            if arm == "graph":
+                return sharding._replay(pool, dpx, 255)
+            state = sharding._enqueue(sharding.shard_slabs(padded, geom), 1, 255, cfg_n, lq4, cq4,
+                                      geom, devs, True)
+            sharding._prefetch(state)
+            return state
+
+        def e2e(arm):
+            with arm_ctx(arm):
+                return port.encode_array(four_k, 255, cfg_n, device=devs)
+
+        def batch(arm):
+            with arm_ctx(arm):
+                return port.encode_batch(frames_b, fb["maxval"], cfg_bn, device=devs)
+
+        floor_jpegs = {}
+        for arm in ("eager", "graph"):
+            if e2e(arm) != jpeg4k or [sha256(j) for j in batch(arm)] != want:
+                raise AssertionError(f"sharded n={n} {arm}: a JPEG differs from the JAX golden")
+            st = floor_start(arm)
+            floor_jpegs[arm] = jpeg_bytes(four_k.shape, cfg_n, lq4, cq4,
+                                          *sharding.finish_sharded_encode(st, cfg_n))
+        if floor_jpegs != {"eager": jpeg4k, "graph": jpeg4k}:
+            raise AssertionError(f"sharded n={n}: a floor start's JPEG differs from the golden")
+        for arm in ("eager", "graph"):  # the 8 instances in flight captured before the rounds
+            states = [floor_start(arm) for _ in range(8)]
+            states[-1].small_ready.synchronize()
+            del states
+        samples = {f"{what} {arm}": [] for what in ("host", "floor", "e2e", "batch")
+                   for arm in ("eager", "graph")}
+        for order in (("eager", "graph"), ("graph", "eager")) * 5:
+            for arm in order:
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    st = start(arm)
+                    samples[f"host {arm}"].append((time.perf_counter() - t0) * 1e3)
+                    sharding.finish_sharded_encode(st, cfg_n)
+                t0 = time.perf_counter()
+                states = [floor_start(arm) for _ in range(8)]
+                states[-1].small_ready.synchronize()
+                samples[f"floor {arm}"].append((time.perf_counter() - t0) * 1e3 / 8)
+                del states, st
+                t0 = time.perf_counter()
+                e2e(arm)
+                samples[f"e2e {arm}"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                batch(arm)
+                samples[f"batch {arm}"].append((time.perf_counter() - t0) * 1e3)
+        for k, v in samples.items():
+            med = statistics.median(v)
+            what = "batch_1080p_p420 (16 frames)" if k.startswith("batch") else "4k_p420"
+            mp = mpix_b if k.startswith("batch") else mpix
+            rate = "" if k.startswith("host") else f", {mp / med * 1e3:.1f} Mpix/s"
+            log(f"{what} sharded n={n} on one card, {k}: median {med:.4f} ms "
+                f"({min(v):.4f}-{max(v):.4f}) of {len(v)}{rate} on {gpu}")
+        slab_pool = [p for p in onedispatch._POOLS if p.idle and p.idle[0].kind == "sharded_onedispatch_slab"]
+        log(f"4k_p420 sharded n={n}: one instance's graph pool "
+            f"{max((p.bytes for p in pool.idle), default=0)} bytes, {len(pool.idle)} instances idle; "
+            f"sharded slab instances {sorted(p.idle[0].bytes for p in slab_pool)} bytes")
+    log(f"all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda.memory_reserved "
+        f"{torch.cuda.memory_reserved(dev)} bytes after phase 5; graph replays so far "
+        f"{json.dumps(replays)}")
 
     # --- 6. the bench stage and the projection -------------------------------
     # the bench in its own process, whose launch counts start at 0 and are

@@ -305,16 +305,18 @@ def _collective_ms(pixels: np.ndarray, config, devices: list) -> tuple[dict, byt
     cfg = dataclasses.replace(config, num_shards=len(devices))
     devices = sharding.shard_devices(devices, len(devices))
     state = sharding.start_sharded_encode(pixels, MAXVAL, cfg, devices)
+    # taken before the finish, which gives a program's instance back: its
+    # outputs belong to the next replay from then on
+    dcs = [sharding.last_dcs(blocks, 1) for blocks in state.blocks]
+    hists = [state.hists[s].clone().to(devices[s]) for s in range(len(devices))]
+    codes = state.tables["codes_flat"].reshape(1, 4, 256).clone()
+    lens = state.tables["lens_flat"].reshape(1, 4, 256).clone()
     scan, tables = sharding.finish_sharded_encode(state, cfg)
     luma_q, chroma_q = quantization_table_pair(cfg.quantization_preset, cfg.quality)
     jpeg = _jpeg(pixels.shape, cfg, luma_q, chroma_q, scan, tables)
 
-    dcs = [sharding.last_dcs(blocks, 1) for blocks in state.blocks]
     dc_in = [torch.empty_like(dcs[s - 1], device=devices[s]) for s in range(1, len(devices))]
-    hists = [state.hists[s].to(devices[s]) for s in range(len(devices))]
-    gathered = torch.empty_like(state.hists)
-    codes = state.tables["codes_flat"].reshape(1, 4, 256)
-    lens = state.tables["lens_flat"].reshape(1, 4, 256)
+    gathered = torch.stack([torch.empty_like(h, device=devices[0]) for h in hists])
     back = [(torch.empty_like(codes, device=d), torch.empty_like(lens, device=d))
             for d in devices[1:]]
 

@@ -18,7 +18,7 @@ Every C entry point takes PyTorch's current stream and returns
 `cudaGetLastError()` after its launches; `check` raises on a nonzero
 code. Each kernel wrapper adds one to its count in `LAUNCHES` where it
 launches its kernel, and nowhere else. A captured one-dispatch program
-(onedispatch.py) launches its kernels when its CUDA graph replays, not
+(onedispatch.py, and the sharded ones of parallel/sharding.py) launches its kernels when its CUDA graph replays, not
 where its wrappers ran: it keeps the counts its capture added, adds them
 again on every replay, and adds one to its kind's count in `REPLAYS`.
 """
@@ -50,7 +50,8 @@ LAUNCHES: dict[str, int] = {
 }
 
 # one-dispatch program kind -> CUDA graph replays since the last reset
-REPLAYS: dict[str, int] = {"onedispatch": 0, "onedispatch_slab": 0, "onedispatch_multi": 0}
+REPLAYS: dict[str, int] = {"onedispatch": 0, "onedispatch_slab": 0, "onedispatch_multi": 0,
+                           "sharded_onedispatch": 0, "sharded_onedispatch_slab": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -49,7 +49,8 @@ of graph memory beyond the one being built: past it, the idle instances
 of every key are dropped, and a start raises when the leased ones alone
 hold that much. A failed capture raises; there is no eager fallback on a
 card. On the CPU the start functions run `_enqueue` eagerly (the plain
-path).
+path). The sharded programs of parallel/sharding.py use the same
+instances, pools and leases.
 
 Word buffers are sized for the worst case (64 words per block + 2), so
 buffers depend only on the image geometry. `prefetch_one_dispatch`
@@ -193,6 +194,14 @@ def _target(pixels: np.ndarray | torch.Tensor, device: torch.device | str) -> to
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def copy_in(target: torch.Tensor, pixels: np.ndarray | torch.Tensor, maxval: int) -> None:
+    """Copy samples into a program's input (or a window of it): a host
+    array with one pageable copy, a tensor with one device copy."""
+    if not isinstance(pixels, torch.Tensor):
+        pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
+    target.copy_(pixels)
 
 
 def _table_key(q: np.ndarray) -> tuple:
@@ -393,14 +402,18 @@ _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
 
 
 class _Program:
-    """One captured instance of a one-dispatch program on a card: a static
-    input, the CUDA graph of `enqueue(input, state)`, the states its capture
-    returned (their tensors are the graph's outputs), the launch counts the
-    capture added, and the bytes its memory pool holds."""
+    """One captured instance of a program on a card (a one-dispatch start
+    here, a sharded one on one card in parallel/sharding.py): a static
+    input (zeroed once), the CUDA graph of `enqueue(input, state)`, the
+    states its capture returned (their tensors are the graph's outputs),
+    the launch counts the capture added, and the bytes its memory pool
+    holds. `fill(input, pixels, maxval)` writes a start's samples into the
+    input (default copy_in: all of it)."""
 
     def __init__(self, kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
-                 enqueue: Callable[[torch.Tensor, torch.Tensor | None], list[OneDispatchState]]):
-        self.kind, self.device, self.stream = kind, device, None
+                 enqueue: Callable[[torch.Tensor, torch.Tensor | None], list],
+                 fill: Callable[[torch.Tensor, object, int], None] = copy_in):
+        self.kind, self.device, self.stream, self.fill = kind, device, None, fill
         with torch.cuda.device(device):
             if device.index not in _CAPTURE_STREAMS:
                 _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
@@ -428,16 +441,14 @@ class _Program:
             self.bytes = torch.cuda.memory_reserved(device) - reserved
         _PROGRAMS.add(self)
 
-    def run(self, pixels: np.ndarray | torch.Tensor, maxval: int) -> list[OneDispatchState]:
+    def run(self, pixels, maxval: int) -> list:
         """Copy the samples in and replay, on the current stream (after the
         stream of the last replay, when it is another one)."""
         with on_device(self.device):
             stream = torch.cuda.current_stream(self.device)
             if self.stream is not None and self.stream != stream:
                 stream.wait_stream(self.stream)
-            if not isinstance(pixels, torch.Tensor):
-                pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
-            self.input.copy_(pixels)
+            self.fill(self.input, pixels, maxval)
             self.graph.replay()
             self.stream = stream
         for k, n in self.launches.items():
@@ -502,7 +513,7 @@ class _Lease:
                 self.pool.give_back(self.program)
 
 
-def _start(pool: _Pool, pixels, maxval: int) -> list[OneDispatchState]:
+def _start(pool: _Pool, pixels, maxval: int) -> list:
     """Lease an instance of `pool`, run it on the samples, and tie its
     lease to the states it returns."""
     program = pool.lease()
@@ -518,8 +529,8 @@ def _start(pool: _Pool, pixels, maxval: int) -> list[OneDispatchState]:
 
 
 def _pool(kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
-          enqueue: Callable) -> _Pool:
-    return _Pool(lambda: _Program(kind, shape, dtype, device, enqueue))
+          enqueue: Callable, fill: Callable = copy_in) -> _Pool:
+    return _Pool(lambda: _Program(kind, shape, dtype, device, enqueue, fill))
 
 
 @mode_keyed_cache(maxsize=32)

@@ -50,16 +50,34 @@ histograms (encoder.encode_array's host scan backend).
 same-geometry images row-stacked per shard: one phase 1 per shard, one
 table build for all 4B tables, then B scan-pack calls per shard or one
 slab scan-pack call (DMMT_SLAB_ONEPACK=1) with a [B, N] mask.
+
+One program per start where every shard is on one card. The JAX package
+compiles the sharded one-dispatch encode into ONE jitted program per key
+(`_compiled_sharded_onedispatch`, `_compiled_sharded_onedispatch_slab`,
+maxsize 16 and 8). The port's caches of those names hold, per key, a pool
+of CUDA graphs captured from `_enqueue` (onedispatch._Program, _Pool): a
+start copies the samples into the MCU-padded input of a leased instance
+(whose padding is zeroed once, when it is made) and replays it; the state
+holds the lease until finish_sharded_encode(_slab) or until it is
+collected. The key is the JAX key (without the multi-process program's
+`gather`) plus what onedispatch.program_key adds. A device list that
+names several distinct cards keeps the op-by-op enqueue: torch captures a
+graph on one device's stream and memory pool, and the DC hand-off and
+the histogram sum cross cards in the middle of the encode. The CPU runs
+`_enqueue` eagerly too, after the staging copies (upload_slabs). A
+failed capture raises.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
 
+from .. import onedispatch as od
 from ..bitstream.device_pack import (
     _flat_tables,
     _use_fused_pack,
@@ -77,6 +95,7 @@ from ..ops.geometry import padded_size
 from ..pipeline import DeviceEncodeResult, dc_dpcm_per_image, phase1_blocks
 from ..tables import quantization_table_pair
 from ..utils import capability
+from ..utils.capability import mode_keyed_cache
 from ..utils.device import narrow_pixels, on_device, upload
 
 # one image's histograms side by side: luma DC 16, luma AC 256, chroma DC
@@ -271,6 +290,17 @@ def upload_slabs(
     return out
 
 
+def shard_slabs(x: torch.Tensor, geom: Geometry) -> list[torch.Tensor]:
+    """Each shard's slab of an MCU-padded image on one device, as
+    upload_slabs gives them: of [n * shard_h, pw, 3] its rows (a view), of
+    a stack [B, n * shard_h, pw, 3] its rows of every image, row-stacked
+    (a copy)."""
+    sh = geom.shard_h
+    if x.dim() == 3:
+        return [x[s * sh: (s + 1) * sh] for s in range(geom.num_shards)]
+    return [x[:, s * sh: (s + 1) * sh].reshape(-1, geom.pw, 3) for s in range(geom.num_shards)]
+
+
 def raw_blocks(
     slabs: list[torch.Tensor], maxval: int, config: EncoderConfig,
     luma_q: np.ndarray, chroma_q: np.ndarray, devices: list[torch.device],
@@ -311,13 +341,15 @@ def chain_dc(
 
 
 def shard_histograms(
-    blocks: tuple, n_images: int, geom: Geometry, shard: int, device: torch.device
+    blocks: tuple, n_images: int, geom: Geometry, shard: int, device: torch.device,
+    hist_state: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """int32 [n_images, 544] histograms (HIST_SPLITS) of one shard's
     DPCM'd blocks, each image's over its valid prefix: the block-histogram
     kernel with a valid count per channel (Cb and Cr apart, then added)
     under DMMT_HIST=fused on a device that runs the kernels, else the
-    masked symbol_histograms."""
+    masked symbol_histograms. `hist_state`: the histogram kernels' state
+    (a captured program's own; default the stream's)."""
     luma, cb, cr = blocks
     nl, nc = int(luma.shape[0]) // n_images, int(cb.shape[0]) // n_images
     rows = geom.valid_rows(shard)
@@ -332,13 +364,14 @@ def shard_histograms(
         for i in range(n_images):
             lz, cbz, crz = luma[i * nl: (i + 1) * nl], cb[i * nc: (i + 1) * nc], cr[i * nc: (i + 1) * nc]
             if fused:
-                l_dc, l_ac = fused_block_histograms(lz, n_luma)
-                b_dc, b_ac = fused_block_histograms(cbz, n_chroma)
-                r_dc, r_ac = fused_block_histograms(crz, n_chroma)
+                l_dc, l_ac = fused_block_histograms(lz, n_luma, state=hist_state)
+                b_dc, b_ac = fused_block_histograms(cbz, n_chroma, state=hist_state)
+                r_dc, r_ac = fused_block_histograms(crz, n_chroma, state=hist_state)
                 c_dc, c_ac = b_dc + r_dc, b_ac + r_ac
             else:
-                l_dc, l_ac = symbol_histograms(lz, luma_mask)
-                c_dc, c_ac = symbol_histograms(torch.cat([cbz, crz]), chroma_mask)
+                l_dc, l_ac = symbol_histograms(lz, luma_mask, state=hist_state)
+                c_dc, c_ac = symbol_histograms(torch.cat([cbz, crz]), chroma_mask,
+                                               state=hist_state)
             out.append(torch.cat([l_dc, l_ac, c_dc, c_ac]).to(torch.int32))
     return torch.stack(out)
 
@@ -399,7 +432,11 @@ def pack_shard(
 
 @dataclass
 class ShardedState:
-    """An enqueued sharded encode of n_images same-geometry images."""
+    """An enqueued sharded encode of n_images same-geometry images. The
+    states a program's replays return share `blocks`, `words` and `bits`
+    with its capture's: nothing changes a one-dispatch state's lists after
+    `_enqueue` (only the two-dispatch finish appends, to a state no program
+    returns)."""
 
     kind: str                      # "onedispatch" or "twodispatch"
     geom: Geometry
@@ -412,6 +449,9 @@ class ShardedState:
     tables: dict | None = None     # device tables of the one-dispatch encode
     small: torch.Tensor | None = None        # host copy of bits + table spec
     small_ready: torch.cuda.Event | None = None
+    # gives the start's program instance back (a weakref.finalize: runs
+    # once, at the finish or when the state is collected); None when eager
+    release: Callable | None = field(default=None, repr=False, compare=False)
 
 
 def kernels_on(devices: list[torch.device]) -> bool:
@@ -425,9 +465,7 @@ def onedispatch_allowed(config: EncoderConfig, height: int, width: int) -> bool:
     and DMMT_NO_ONEDISPATCH are not read: the sharded two-dispatch encode
     runs only past the bound, under DMMT_NO_FUSED_PACK, or where the
     devices do not run the kernels."""
-    from ..onedispatch import one_dispatch_supported
-
-    return _use_fused_pack() and one_dispatch_supported(height, width, config.chroma_subsampling)
+    return _use_fused_pack() and od.one_dispatch_supported(height, width, config.chroma_subsampling)
 
 
 def use_sharded_onedispatch(config: EncoderConfig, height: int, width: int,
@@ -437,39 +475,121 @@ def use_sharded_onedispatch(config: EncoderConfig, height: int, width: int,
     return onedispatch_allowed(config, height, width) and kernels_on(devices)
 
 
+def _enqueue(slabs: list[torch.Tensor], n_images: int, maxval: int, config: EncoderConfig,
+             luma_q: np.ndarray, chroma_q: np.ndarray, geom: Geometry,
+             devices: list[torch.device], onedispatch: bool, onepack: bool = False,
+             hist_state: torch.Tensor | None = None) -> ShardedState:
+    """Each shard's phase 1 on its slab ([n_images * shard_h, pw, 3] on its
+    device), the DC hand-off and the histograms, gathered on the first
+    shard's device; then (onedispatch) one table build there and every
+    shard's pack (B scan-pack calls, or one slab call: onepack). The eager
+    enqueue, and what a program captures (with its own `hist_state`)."""
+    blocks = chain_dc(raw_blocks(slabs, maxval, config, luma_q, chroma_q, devices), n_images,
+                      devices)
+    hists = gather_histograms([shard_histograms(x, n_images, geom, s, dev, hist_state)
+                               for s, (x, dev) in enumerate(zip(blocks, devices))], devices[0])
+    kind = "onedispatch" if onedispatch else "twodispatch"
+    if not onedispatch:
+        return ShardedState(kind, geom, devices, n_images, blocks, hists)
+    with on_device(devices[0]):
+        tables = device_tables(hists.sum(dim=0))
+    codes = tables["codes_flat"].reshape(n_images, 4, 256)
+    lens = tables["lens_flat"].reshape(n_images, 4, 256)
+    words, bits = [], []
+    for s, (x, dev) in enumerate(zip(blocks, devices)):
+        w, b = pack_shard(x, n_images, geom, s, dev, codes.to(dev, non_blocking=True),
+                          lens.to(dev, non_blocking=True), onepack)
+        words.append(w)
+        bits.append(b)
+    return ShardedState(kind, geom, devices, n_images, blocks, hists, words, bits, tables)
+
+
 def _start(frames: list[np.ndarray], maxval: int, config: EncoderConfig,
            devices: list[torch.device], onedispatch: bool, luma_q: np.ndarray | None = None,
            chroma_q: np.ndarray | None = None) -> ShardedState:
-    """Upload, phase 1, DC hand-off and histograms on every shard for B
-    images of one shape, then (onedispatch) one table build on the first
-    shard's device and every shard's pack. The quantization tables default
-    to the config's."""
+    """The eager start of B images of one shape: every shard's staging copy
+    and upload (upload_slabs), `_enqueue`, and (onedispatch) the small
+    copy. The quantization tables default to the config's."""
     b, (height, width) = len(frames), frames[0].shape[:2]
     geom = Geometry.of(height, width, config.chroma_subsampling, config.num_shards)
     if luma_q is None or chroma_q is None:
         luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
     slabs = upload_slabs(frames, maxval, geom, devices)
-    blocks = chain_dc(raw_blocks(slabs, maxval, config, luma_q, chroma_q, devices), b, devices)
-    hists = gather_histograms([shard_histograms(x, b, geom, s, dev)
-                               for s, (x, dev) in enumerate(zip(blocks, devices))], devices[0])
-    state = ShardedState("onedispatch" if onedispatch else "twodispatch", geom, devices, b,
-                         blocks, hists)
-    if not onedispatch:
-        return state
-    from ..onedispatch import slab_onepack_enabled
+    state = _enqueue(slabs, b, maxval, config, luma_q, chroma_q, geom, devices, onedispatch,
+                     onepack=onedispatch and b > 1 and od.slab_onepack_enabled())
+    if onedispatch:
+        _prefetch(state)
+    return state
 
-    with on_device(devices[0]):
-        state.tables = device_tables(hists.sum(dim=0))
-    codes = state.tables["codes_flat"].reshape(b, 4, 256)
-    lens = state.tables["lens_flat"].reshape(b, 4, 256)
-    onepack = b > 1 and slab_onepack_enabled()
-    for s, (x, dev) in enumerate(zip(blocks, devices)):
-        words, bits = pack_shard(x, b, geom, s, dev, codes.to(dev, non_blocking=True),
-                                 lens.to(dev, non_blocking=True), onepack)
-        state.words.append(words)
-        state.bits.append(bits)
+
+def _program_card(pixels, devices: list[torch.device]) -> torch.device | None:
+    """The card a start replays its program on: every shard on that one
+    card; None (the eager enqueue) for the CPU or several distinct
+    devices."""
+    if len(set(devices)) != 1:
+        return None
+    dev = od._target(pixels, devices[0])
+    return dev if dev.type == "cuda" else None
+
+
+def _replay(pool, pixels, maxval: int) -> ShardedState:
+    """Lease an instance of `pool`, copy the samples in, replay it, and
+    enqueue the small copy behind it."""
+    state = od._start(pool, pixels, maxval)[0]
     _prefetch(state)
     return state
+
+
+def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: int,
+                  preset: ChromaSubsamplingPreset, variant: DCTVariant, num_shards: int,
+                  device: torch.device, dtype: torch.dtype, maxval: int, luma_key: tuple,
+                  chroma_key: tuple, onepack: bool):
+    """A pool of the sharded program over an MCU-padded input of `shape`
+    ([ph, pw, 3], or [B, ph, pw, 3] for the slab): shard_slabs, then
+    `_enqueue` with every shard on the program's card. A start writes its
+    samples into the input's [:height, :width] (each image's, for the
+    slab), so the padding stays black."""
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant, num_shards=num_shards)
+    geom = Geometry.of(height, width, preset, num_shards)
+    lq, cq = od._table(luma_key), od._table(chroma_key)
+
+    def enqueue(x, state):
+        return [_enqueue(shard_slabs(x, geom), n_images, maxval, config, lq, cq, geom,
+                         [x.device] * num_shards, True, onepack, state)]
+
+    def fill(x, pixels, maxval):
+        if len(shape) == 3:
+            od.copy_in(x[:height, :width], pixels, maxval)
+        else:
+            for i, px in enumerate(pixels):
+                od.copy_in(x[i, :height, :width], px, maxval)
+
+    return od._pool(kind, shape, dtype, device, enqueue, fill)
+
+
+@mode_keyed_cache(maxsize=16)
+def _compiled_sharded_onedispatch(height: int, width: int, preset: ChromaSubsamplingPreset,
+                                  variant: DCTVariant, num_shards: int, device: torch.device,
+                                  dtype: torch.dtype, maxval: int, luma_key: tuple,
+                                  chroma_key: tuple):
+    """The sharded one-dispatch program of one image on one card."""
+    geom = Geometry.of(height, width, preset, num_shards)
+    return _sharded_pool("sharded_onedispatch", (geom.ph, geom.pw, 3), 1, height, width, preset,
+                         variant, num_shards, device, dtype, maxval, luma_key, chroma_key, False)
+
+
+@mode_keyed_cache(maxsize=8)
+def _compiled_sharded_onedispatch_slab(n_images: int, height: int, width: int,
+                                       preset: ChromaSubsamplingPreset, variant: DCTVariant,
+                                       num_shards: int, device: torch.device, dtype: torch.dtype,
+                                       maxval: int, luma_key: tuple, chroma_key: tuple):
+    """The sharded slab program of n_images same-geometry images on one
+    card (DMMT_SLAB_ONEPACK read at capture: one slab scan-pack call per
+    shard)."""
+    geom = Geometry.of(height, width, preset, num_shards)
+    return _sharded_pool("sharded_onedispatch_slab", (n_images, geom.ph, geom.pw, 3), n_images,
+                         height, width, preset, variant, num_shards, device, dtype, maxval,
+                         luma_key, chroma_key, n_images > 1 and od.slab_onepack_enabled())
 
 
 def _prefetch(state: ShardedState) -> None:
@@ -520,9 +640,8 @@ def _check_bits(state_hists: np.ndarray, tables, packed: int, what: str) -> None
 def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
     """Wait for the small copy, fetch the needed words of every shard and
     image, and bit-merge each image's segments -> [(scan bytes,
-    HuffmanTables)] per image."""
-    from ..onedispatch import tables_from_spec
-
+    HuffmanTables)] per image. Then give a program's instance back: the
+    state's device tensors belong to the next start that replays it."""
     if state.small_ready is not None:
         state.small_ready.synchronize()
     small = state.small.numpy()
@@ -537,11 +656,13 @@ def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
     check = state.hists.sum(dim=0).cpu().numpy() if check_bits_enabled() else None
     results = []
     for i in range(b):
-        tables = tables_from_spec(spec_syms[i], spec_lens[i], spec_ns[i])
+        tables = od.tables_from_spec(spec_syms[i], spec_lens[i], spec_ns[i])
         if check is not None:
             _check_bits(check[i], tables, int(bits[:, i].sum()), f"sharded one-dispatch image {i}")
         results.append((merge_and_stuff([(segments[s][i], int(bits[s, i])) for s in range(n)]),
                         tables))
+    if state.release is not None:
+        state.release()  # its instance may replay again
     return results
 
 
@@ -592,10 +713,20 @@ def start_sharded_encode(
     shard_devices(device, config.num_shards) without waiting: the
     one-dispatch encode where use_sharded_onedispatch holds (every shard
     packed), otherwise the two-dispatch encode's phase 1 and histograms.
-    Finish with finish_sharded_encode."""
+    With every shard on one card the one-dispatch encode is one replay of
+    the program (_compiled_sharded_onedispatch); across several cards and
+    on the CPU it is enqueued op by op. Finish with finish_sharded_encode."""
     devices = shard_devices(device, config.num_shards)
     h, w = int(pixels.shape[0]), int(pixels.shape[1])
-    return _start([pixels], maxval, config, devices, use_sharded_onedispatch(config, h, w, devices))
+    one = use_sharded_onedispatch(config, h, w, devices)
+    card = _program_card(pixels, devices) if one else None
+    if card is None:
+        return _start([pixels], maxval, config, devices, one)
+    lq, cq = quantization_table_pair(config.quantization_preset, config.quality)
+    pool = _compiled_sharded_onedispatch(h, w, config.chroma_subsampling, config.dct_variant,
+                                         config.num_shards, *od.program_key(pixels, maxval, lq, cq,
+                                                                             card))
+    return _replay(pool, pixels, maxval)
 
 
 def finish_sharded_encode(state: ShardedState, config: EncoderConfig) -> tuple[bytes, object]:
@@ -620,15 +751,15 @@ def start_sharded_encode_slab(
     ([B, H, W, 3] host samples, or a list of B [H, W, 3] arrays): each shard row-stacks its slice of every
     image and runs one phase 1, the 4B tables come from one build, and each
     shard packs its B segments (DMMT_SLAB_ONEPACK=1: in one slab scan-pack
-    call). Raises ValueError when a shard's group exceeds the slab bound
+    call). With every shard on one card: one replay of the program
+    (_compiled_sharded_onedispatch_slab), whose one state holds the lease.
+    Raises ValueError when a shard's group exceeds the slab bound
     (onedispatch.slab_max_blocks)."""
-    from ..onedispatch import slab_max_blocks
-
     devices = shard_devices(device, config.num_shards)
     frames = list(pixels_stack)
     b, (h, w) = len(frames), frames[0].shape[:2]
     geom = Geometry.of(h, w, config.chroma_subsampling, config.num_shards)
-    limit = slab_max_blocks()
+    limit = od.slab_max_blocks()
     if b * geom.n_scan > limit:
         raise ValueError(f"start_sharded_encode_slab: {b} x {geom.n_scan} blocks per shard "
                          f"exceeds the {limit}-block group bound (DMMT_SLAB_MAX_BLOCKS); "
@@ -636,7 +767,14 @@ def start_sharded_encode_slab(
     if not use_sharded_onedispatch(config, h, w, devices):
         raise ValueError("the sharded slab needs the one-dispatch sharded encode "
                          "(use_sharded_onedispatch)")
-    return _start(frames, maxval, config, devices, onedispatch=True)
+    card = _program_card(frames[0], devices)
+    if card is None:
+        return _start(frames, maxval, config, devices, onedispatch=True)
+    lq, cq = quantization_table_pair(config.quantization_preset, config.quality)
+    pool = _compiled_sharded_onedispatch_slab(b, h, w, config.chroma_subsampling,
+                                              config.dct_variant, config.num_shards,
+                                              *od.program_key(frames[0], maxval, lq, cq, card))
+    return _replay(pool, frames, maxval)
 
 
 def finish_sharded_encode_slab(state: ShardedState, config: EncoderConfig) -> list[tuple[bytes, object]]:

@@ -23,7 +23,6 @@ from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset, DCTVariant, config_from_jax
 from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
 from dmmt_jpeg_encoder_tpu_torch.utils import capability
-from dmmt_jpeg_encoder_tpu_torch.utils.device import narrow_pixels
 from torch_port_fixtures import FIXTURES, fixture_pixels
 
 KNOBS = {"DMMT_P1": "fused1", "DMMT_HIST": "matmul", "DMMT_P1_PREC": "high",
@@ -48,21 +47,20 @@ def _clean(monkeypatch):
 
 class FakeProgram:
     """A captured instance without the graph: `run` copies the samples into
-    the static input and runs the eager enqueue over it on the CPU."""
+    the static input (with the program's `fill`) and runs the eager
+    enqueue over it on the CPU."""
 
     count = 0
     bytes = 0
 
-    def __init__(self, kind, shape, dtype, device, enqueue):
-        self.kind, self.enqueue = kind, enqueue
+    def __init__(self, kind, shape, dtype, device, enqueue, fill=tod.copy_in):
+        self.kind, self.enqueue, self.fill = kind, enqueue, fill
         self.input = torch.zeros(shape, dtype=dtype)
         FakeProgram.count += 1
         tod._PROGRAMS.add(self)
 
     def run(self, pixels, maxval):
-        if not isinstance(pixels, torch.Tensor):
-            pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
-        self.input.copy_(pixels)
+        self.fill(self.input, pixels, maxval)
         return self.enqueue(self.input, None)
 
 
