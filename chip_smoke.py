@@ -118,7 +118,9 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    program floor (8 starts in flight, per image) and the 4K e2e; the
    graphs' memory and torch.cuda.memory_reserved() after the phase.
    Every path of phases 4-4c also checks its graph replays (one per
-   start, slab or multi call; none on the two-dispatch and fused paths);
+   start, slab or multi call; on the two-dispatch and fused paths one per
+   half: the first half's program and the pack's, none for the host scan
+   backend's pack);
 5. the sharded encode (parallel/sharding.py), its shards on card 0 (a
    device list that repeats it), each path's launches counted with the
    capability probe among them: every single-image fixture at
@@ -138,10 +140,11 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    each sharded one-dispatch start and sharded slab call is exactly one
    replay of a captured program (parallel/sharding.py's
    _compiled_sharded_onedispatch and _compiled_sharded_onedispatch_slab;
-   build.REPLAYS "sharded_onedispatch" and "sharded_onedispatch_slab";
-   none on the two-dispatch paths) with the kernel counts of
-   sharded_launches, and its JPEGs equal the eager enqueue's
-   (sharding._start, op by op, as across distinct cards); then what
+   build.REPLAYS "sharded_onedispatch" and "sharded_onedispatch_slab"; the
+   two-dispatch encode one replay of _compiled_sharded and, but for the
+   host scan backend, one of _compiled_shard_pack) with the kernel counts
+   of sharded_launches, and its JPEGs equal the eager enqueue's
+   (sharding._start and the op-by-op packs, as across distinct cards); then what
    sharding costs on one card: the warm 4K encode at 1, 2 and 4 shards and
    the 16 x 1080p batch as slab and as sharded slab; two sharded starts in
    flight on two rolled 4K frames, finished in reverse order, each against
@@ -151,6 +154,26 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    start's host time, the program floor (8 starts in flight on pixels
    already on the card, per image), the 4K e2e and the 16 x 1080p sharded
    slab, and the graphs' bytes;
+5b. the two-dispatch programs (CUDA graphs: pipeline.py's
+   _compiled_pipeline and _compiled_pipeline_batch, bitstream/
+   device_pack.py's _compiled_fused_pack, _compiled_pack and
+   _compiled_pack_batch, parallel/sharding.py's _compiled_sharded and
+   _compiled_shard_pack): every fixture with one_dispatch="off", the 4K
+   frame with the fused pack, the staged pack, DMMT_HIST=pallas and the
+   host scan backend, 16 x 1080p with fused_batch=16, and the sharded
+   two-dispatch at n = 2 on card 0 past a device table bound lowered to
+   one symbol and under DMMT_NO_FUSED_PACK=1: each replayed JPEG held
+   against the eager enqueue's (pipeline.program_card naming no card,
+   or eager_sharded) and its golden, each half one replay with its
+   kernels counted; each start function's state (single, slab, multi,
+   sharded, sharded slab, sharded two-dispatch) finished, then another
+   image started on its instance and finished, then the first finished
+   again: its first bytes and tables; pack_scan of one two-dispatch
+   result twice with another image's replays between; then, eager
+   enqueue against replay in 10 alternating rounds, the host time of each
+   half of a 4K two-dispatch encode (fused and staged pack), the 4K e2e
+   (both packs), 16 x 1080p fused_batch=16 and the sharded two-dispatch
+   at n = 2 on one card (both arms), and each instance's graph bytes;
 6. the port's bench stage, `python -m dmmt_jpeg_encoder_tpu_torch.bench
    --rounds 3` in its own process: it must exit 0 (no stage or candidate
    failed, every timed JPEG equal to its reference) with every metric of
@@ -324,6 +347,29 @@ def sharded_launches(n: int, images: int, groups: int, times: int = 1, p1=("phas
     return c
 
 
+def two_dispatch_replays(n: int, pack: str = "fused_pack") -> dict:
+    """The graph replays of n two-dispatch encode_array calls on one card:
+    the first half's program and the pack's (pack "fused_pack", "pack" for
+    the staged pack, None for the host scan backend) once each per call."""
+    return {"pipeline": n, **({pack: n} if pack else {})}
+
+
+def four_k_two_dispatch(off4, host4, none_new: dict) -> list[tuple]:
+    """The 4K frame's two-dispatch paths: (label, environment, config,
+    kernel launches, graph replays) of one encode_array call each."""
+    return [
+        ("two-dispatch, staged pack (DMMT_NO_FUSED_PACK=1)", {"DMMT_NO_FUSED_PACK": "1"}, off4,
+         {"phase1": 1, "block_hist": 2, "scan_pack": 0, "scan_pack_slab": 0,
+          "histogram": 0, "table_lookup": 2, "pack_emissions": 1}, two_dispatch_replays(1, "pack")),
+        ("two-dispatch, DMMT_HIST=pallas", {"DMMT_HIST": "pallas"}, off4,
+         {"phase1": 1, "block_hist": 0, "scan_pack": 1, "scan_pack_slab": 0, "histogram": 4,
+          "table_lookup": 0, "pack_emissions": 0}, two_dispatch_replays(1)),
+        ("two-dispatch, host scan backend", {}, host4,
+         {"phase1": 1, "block_hist": 2, "scan_pack": 0, "scan_pack_slab": 0, **none_new},
+         two_dispatch_replays(1, None)),
+    ]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -421,11 +467,12 @@ def staged_pack_inputs(torch, np, luma, cb, cr, lpm: int, flats: list, bits: lis
     image's stream at a word-aligned base -> (its two lookup calls, rebuilt
     here as block_emissions makes them; emissions; boff; words needed + 2)."""
     from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import (
-        _flat_tables,
         _stacked_tables,
         batch_emissions,
         chroma_index,
         interleave_scan,
+        pack_values,
+        unpack_values,
     )
     from dmmt_jpeg_encoder_tpu_torch.entropy.categorize import (
         ac_symbols_and_structure,
@@ -434,15 +481,16 @@ def staged_pack_inputs(torch, np, luma, cb, cr, lpm: int, flats: list, bits: lis
 
     n_words = [(int(b) + 31) // 32 for b in bits]
     word_off = np.concatenate([[0], np.cumsum(n_words)[:-1]]).astype(np.int64)
-    emissions, boff = batch_emissions(luma, cb, cr, lpm, flats, word_off)
+    b = int(luma.shape[0])
+    codes, lens, word_base = unpack_values(
+        torch.from_numpy(pack_values(flats, word_off)).to(luma.device), b)
+    emissions, boff = batch_emissions(luma, cb, cr, lpm, codes, lens, word_base)
     # the lookups: each scan block's DC category and AC symbols, offset by
     # its table set (chroma), in each image's own combined tables
-    b = int(luma.shape[0])
     scan = interleave_scan(luma.reshape(-1, 64), cb.reshape(-1, 64), cr.reshape(-1, 64),
                            b * int(cb.shape[1]), lpm)
     chroma = chroma_index(int(scan.shape[0]), lpm + 2, lpm, scan.device)
-    dc_comb, ac_comb = _stacked_tables(*(torch.from_numpy(x).to(scan.device)
-                                         for x in _flat_tables(flats)))
+    dc_comb, ac_comb = _stacked_tables(codes, lens)
     symbols = ac_symbols_and_structure(scan)[0]
     calls = [((chroma * 16 + magnitude_category(scan[:, 0])).reshape(b, -1),
               dc_comb.reshape(b, 32)),
@@ -1202,25 +1250,16 @@ def main() -> int:
         outputs = run_path(f"single-image fixtures, {label}", lambda: {
             name: port.encode_array(images[name], f["maxval"], cfgs[name], device=dev)
             for name, f in FIXTURES.items()
-        }, expect, {"onedispatch": n_fix} if cfgs is configs else {})
+        }, expect, {"onedispatch": n_fix} if cfgs is configs else two_dispatch_replays(n_fix))
         for name, jpeg in outputs.items():
             check_golden(name, jpeg, label)
 
     four_k, cfg4 = images["4k_p420"], configs["4k_p420"]
     host4 = dataclasses.replace(cfg4, scan_backend="host")
-    for label, env, cfg, expect in (
-        ("two-dispatch, staged pack (DMMT_NO_FUSED_PACK=1)", {"DMMT_NO_FUSED_PACK": "1"},
-         off["4k_p420"], {"phase1": 1, "block_hist": 2, "scan_pack": 0, "scan_pack_slab": 0,
-                          "histogram": 0, "table_lookup": 2, "pack_emissions": 1}),
-        ("two-dispatch, DMMT_HIST=pallas", {"DMMT_HIST": "pallas"}, off["4k_p420"],
-         {"phase1": 1, "block_hist": 0, "scan_pack": 1, "scan_pack_slab": 0, "histogram": 4,
-          "table_lookup": 0, "pack_emissions": 0}),
-        ("two-dispatch, host scan backend", {}, host4,
-         {"phase1": 1, "block_hist": 2, "scan_pack": 0, "scan_pack_slab": 0, **none_new}),
-    ):
+    for label, env, cfg, expect, replayed in four_k_two_dispatch(off["4k_p420"], host4, none_new):
         with scoped_env(env):
             jpeg = run_path(f"4k_p420 {label}", lambda: port.encode_array(four_k, 255, cfg, device=dev),
-                            expect)
+                            expect, replayed)
         check_golden("4k_p420", jpeg, label)
 
     arms = {"slab": {"DMMT_SLAB_ONEPACK": "0"}, "slab_onepack": {"DMMT_SLAB_ONEPACK": "1"},
@@ -1262,7 +1301,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         out = run_path(f"{name} fused_batch={f['n']}", fused, {
             "phase1": chunks, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
-            "histogram": 4 * chunks, "table_lookup": 2 * chunks, "pack_emissions": chunks}, {})
+            "histogram": 4 * chunks, "table_lookup": 2 * chunks, "pack_emissions": chunks},
+            {"pipeline_batch": chunks, "pack_batch": chunks})
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         if [sha256(j) for j in out] != want:
             raise AssertionError(f"{name} fused_batch: cuda JPEGs differ from the JAX goldens")
@@ -1306,7 +1346,7 @@ def main() -> int:
                 outputs = run_path(f"{route}: single-image fixtures, {label}", lambda: {
                     name: port.encode_array(images[name], f["maxval"], cfgs[name], device=dev)
                     for name, f in FIXTURES.items()
-                }, expect, {"onedispatch": n_fix} if cfgs is rcfgs else {})
+                }, expect, {"onedispatch": n_fix} if cfgs is rcfgs else two_dispatch_replays(n_fix))
             for name, jpeg in outputs.items():
                 g = route_goldens[route][name]
                 if sha256(jpeg) != g["jpeg_sha256"] or len(jpeg) != g["jpeg_len"]:
@@ -1329,7 +1369,7 @@ def main() -> int:
                 ):
                     out = run_path(f"{route}: {name} {label}", lambda: port.encode_batch(
                         frames, f["maxval"], cfg, fused_batch=fb, device=dev), {**none_new, **expect},
-                        {} if fb else {"onedispatch_slab": groups})
+                        {"pipeline_batch": 1, "pack_batch": 1} if fb else {"onedispatch_slab": groups})
                     if [sha256(j) for j in out] != want:
                         raise AssertionError(f"{name} {route} {label}: cuda JPEGs differ from the JAX goldens")
                     log(f"{route}: {name} {label}: every frame == JAX golden")
@@ -1683,15 +1723,15 @@ def main() -> int:
             try:
                 outputs = run_sharded(f"sharded n={n} on one card, single-image fixtures, {label}",
                                       fixtures_at, sharded_launches(n, 1, 1, times=n_fix),
-                                      {} if two else {"sharded_onedispatch": n_fix})
-                if not two:
-                    with eager_sharded():
-                        check_eager(f"sharded n={n} {label}", outputs, fixtures_at())
+                                      {"sharded": n_fix, "shard_pack": n_fix} if two
+                                      else {"sharded_onedispatch": n_fix})
+                if len(two_dispatch_runs) != two:
+                    raise AssertionError(f"sharded n={n} {label}: {len(two_dispatch_runs)} "
+                                         f"two-dispatch encodes, expected {two}")
+                with eager_sharded():
+                    check_eager(f"sharded n={n} {label}", outputs, fixtures_at())
             finally:
                 onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved_bound
-            if len(two_dispatch_runs) != two:
-                raise AssertionError(f"sharded n={n} {label}: {len(two_dispatch_runs)} two-dispatch "
-                                     f"encodes, expected {two}")
             for name, jpeg in outputs.items():
                 check_golden(name, jpeg, f"sharded n={n} {label}")
     sharding._finish_twodispatch = real_finish
@@ -1699,28 +1739,28 @@ def main() -> int:
     for n in (2, 4):
         for label, env, kw, expect, want, replayed in (
             ("staged pack (DMMT_NO_FUSED_PACK=1)", {"DMMT_NO_FUSED_PACK": "1"}, {},
-             sharded_launches(n, 1, 1, pack="staged"), None, 0),
+             sharded_launches(n, 1, 1, pack="staged"), None, {"sharded": 1, "shard_pack": 1}),
             ("DMMT_HIST=pallas", {"DMMT_HIST": "pallas"}, {}, sharded_launches(n, 1, 1, hist="pallas"),
-             None, 1),
+             None, {"sharded_onedispatch": 1}),
             ("host scan backend", {}, {"scan_backend": "host"}, sharded_launches(n, 1, 1, pack="host"),
-             None, 0),
+             None, {"sharded": 1}),
             ("DMMT_P1=mxu, DMMT_P1_PREC=high (ignored: the default bytes)",
              {"DMMT_P1": "mxu", "DMMT_P1_PREC": "high"}, {},
-             sharded_launches(n, 1, 1), None, 1),
+             sharded_launches(n, 1, 1), None, {"sharded_onedispatch": 1}),
             ("FUSED (the Arai phase 1: the default bytes)", {}, {"dct_variant": port.DCTVariant.FUSED},
-             sharded_launches(n, 1, 1), None, 1),
+             sharded_launches(n, 1, 1), None, {"sharded_onedispatch": 1}),
             ("SIMPLE", {}, {"dct_variant": port.DCTVariant.SIMPLE},
-             sharded_launches(n, 1, 1, p1=("plane_dct_mm", 2)), simple_golden, 1),
+             sharded_launches(n, 1, 1, p1=("plane_dct_mm", 2)), simple_golden,
+             {"sharded_onedispatch": 1}),
         ):
             def encode_4k(n=n, kw=kw):
                 return port.encode_array(four_k, 255, sharded_cfg(cfg4, n, **kw), device=on_card(n))
 
             with scoped_env(env):
                 jpeg = run_sharded(f"4k_p420 sharded n={n} on one card, {label}", encode_4k, expect,
-                                   {"sharded_onedispatch": replayed} if replayed else {})
-                if replayed:
-                    with eager_sharded():
-                        check_eager(f"4k_p420 sharded n={n} {label}", jpeg, encode_4k())
+                                   replayed)
+                with eager_sharded():
+                    check_eager(f"4k_p420 sharded n={n} {label}", jpeg, encode_4k())
             if want is None:
                 check_golden("4k_p420", jpeg, f"sharded n={n} {label}")
             elif sha256(jpeg) != want:
@@ -1969,6 +2009,244 @@ def main() -> int:
     log(f"all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda.memory_reserved "
         f"{torch.cuda.memory_reserved(dev)} bytes after phase 5; graph replays so far "
         f"{json.dumps(replays)}")
+
+    # --- 5b. the two-dispatch programs (CUDA graphs) -------------------------
+    # each half of a two-dispatch encode on one card is one replay of a
+    # captured program (pipeline._compiled_pipeline and
+    # _compiled_pipeline_batch; bitstream/device_pack's _compiled_fused_pack,
+    # _compiled_pack and _compiled_pack_batch; parallel/sharding's
+    # _compiled_sharded and _compiled_shard_pack): every JPEG against the
+    # eager enqueue's (pipeline.program_card naming no card; for the
+    # sharded encode, eager_sharded) and its golden
+    from dmmt_jpeg_encoder_tpu_torch import pipeline
+    from dmmt_jpeg_encoder_tpu_torch.bitstream import device_pack
+    from dmmt_jpeg_encoder_tpu_torch.utils.device import upload
+
+    t_phase = time.perf_counter()
+    two_kinds = ("pipeline", "pipeline_batch", "fused_pack", "pack", "pack_batch", "sharded",
+                 "shard_pack")
+
+    @contextlib.contextmanager
+    def eager_two_dispatch():
+        """The two-dispatch halves enqueue op by op, in place of a replay."""
+        real = pipeline.program_card
+        pipeline.program_card = lambda pixels, device: None
+        try:
+            yield
+        finally:
+            pipeline.program_card = real
+
+    @contextlib.contextmanager
+    def lowered_bound(symbols: int):
+        """The device table build's bound lowered to `symbols`: every image
+        takes the two-dispatch encode."""
+        saved, onedispatch.MAX_DEVICE_TABLE_SYMBOLS = onedispatch.MAX_DEVICE_TABLE_SYMBOLS, symbols
+        try:
+            yield
+        finally:
+            onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved
+
+    def replay_against_eager(label, fn, expect, replayed, want, eager_ctx=eager_two_dispatch,
+                             run=run_path):
+        graph = run(label, fn, expect, replayed)
+        with eager_ctx():
+            eager = fn()
+        graph, eager = ([x] if isinstance(x, bytes) else x for x in (graph, eager))
+        check_replay(label, graph, eager, want)
+
+    n_two = 0
+    per_two = {**none_new, "phase1": 1, "block_hist": 2, "scan_pack": 1, "scan_pack_slab": 0}
+    for name, f in FIXTURES.items():
+        replay_against_eager(f"{name} two-dispatch (one_dispatch=off) replay",
+                             lambda: port.encode_array(images[name], f["maxval"], off[name], device=dev),
+                             per_two, two_dispatch_replays(1), [goldens[name]["jpeg_sha256"]])
+        n_two += 1
+    for label, env, cfg, expect, replayed in (
+            ("two-dispatch, fused pack", {}, off["4k_p420"], per_two, two_dispatch_replays(1)),
+            *four_k_two_dispatch(off["4k_p420"], host4, none_new)):
+        with scoped_env(env):
+            replay_against_eager(f"4k_p420 {label} replay",
+                                 lambda: port.encode_array(four_k, 255, cfg, device=dev), expect,
+                                 replayed, [goldens["4k_p420"]["jpeg_sha256"]])
+        n_two += 1
+    f16, frames16 = BATCH_FIXTURES["batch_1080p_p420"], batches["batch_1080p_p420"]
+    cfg16 = config_of(f16)
+
+    def fused16():
+        return port.encode_batch(frames16, f16["maxval"], cfg16, fused_batch=f16["n"], device=dev)
+
+    replay_against_eager(
+        "batch_1080p_p420 fused_batch=16 replay", fused16,
+        {**none_new, "phase1": 1, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
+         "histogram": 4, "table_lookup": 2, "pack_emissions": 1},
+        {"pipeline_batch": 1, "pack_batch": 1}, [g["jpeg_sha256"] for g in batch_goldens["batch_1080p_p420"]])
+    n_two += 1
+    cfg2 = sharded_cfg(cfg4, 2)
+    sharded_two = (("past a table bound of 1 symbol", {}, 1, sharded_launches(2, 1, 1)),
+                   ("DMMT_NO_FUSED_PACK=1", {"DMMT_NO_FUSED_PACK": "1"},
+                    onedispatch.MAX_DEVICE_TABLE_SYMBOLS, sharded_launches(2, 1, 1, pack="staged")))
+    for label, env, symbols, expect in sharded_two:
+        with lowered_bound(symbols), scoped_env(env):
+            replay_against_eager(
+                f"4k_p420 sharded two-dispatch n=2 on one card, {label}, replay",
+                lambda: port.encode_array(four_k, 255, cfg2, device=on_card(2)), expect,
+                {"sharded": 1, "shard_pack": 1}, [goldens["4k_p420"]["jpeg_sha256"]],
+                eager_ctx=eager_sharded, run=run_sharded)
+        n_two += 1
+    log(f"two-dispatch programs: {n_two} replayed paths (every fixture one_dispatch=off; the 4K "
+        "frame with the fused pack, the staged pack, DMMT_HIST=pallas and the host scan backend; "
+        "16 x 1080p fused_batch=16; the sharded two-dispatch at n=2 past a table bound and under "
+        "DMMT_NO_FUSED_PACK) == the eager enqueue's JPEGs == the JAX goldens, one replay per program")
+
+    # a state finished twice, a start of another image replaying its
+    # instance between the finishes: the first finish's bytes and tables
+    name = "333x1001_p422"
+    pa, pb = images[name], np.ascontiguousarray(images[name][::-1])
+    cfga = configs[name]
+    lqa, cqa = quantization_table_pair(cfga.quantization_preset, cfga.quality)
+    cfga2 = sharded_cfg(cfga, 2)
+
+    def one_finish(states):
+        return [jpeg_bytes(pa.shape, cfga, lqa, cqa, *onedispatch.finish_one_dispatch(s))
+                for s in states]
+
+    def sharded_finish(states):
+        (state,) = states
+        done = (sharding.finish_sharded_encode_slab(state, cfga2) if state.n_images > 1
+                else [sharding.finish_sharded_encode(state, cfga2)])
+        return [jpeg_bytes(pa.shape, cfga2, lqa, cqa, *d) for d in done]
+
+    refinish = {
+        "start_one_dispatch": (lambda px: [onedispatch.start_one_dispatch(px, 255, cfga, lqa, cqa)],
+                               one_finish, 1, None),
+        "start_one_dispatch_slab": (lambda px: onedispatch.start_one_dispatch_slab(
+            np.stack([px, px[:, ::-1]]), 255, cfga, lqa, cqa), one_finish, 2, None),
+        "start_one_dispatch_multi": (lambda px: onedispatch.start_one_dispatch_multi(
+            np.stack([px, px[:, ::-1]]), 255, cfga, lqa, cqa), one_finish, 2, None),
+        "start_sharded_encode": (lambda px: [sharding.start_sharded_encode(px, 255, cfga2, on_card(2))],
+                                 sharded_finish, 1, None),
+        "start_sharded_encode_slab": (lambda px: [sharding.start_sharded_encode_slab(
+            [px, np.ascontiguousarray(px[:, ::-1])], 255, cfga2, on_card(2))], sharded_finish, 2, None),
+        "start_sharded_encode, two-dispatch": (
+            lambda px: [sharding.start_sharded_encode(px, 255, cfga2, on_card(2))], sharded_finish, 1, 1),
+    }
+    for label, (start, finish, n, symbols) in refinish.items():
+        with lowered_bound(symbols or onedispatch.MAX_DEVICE_TABLE_SYMBOLS):
+            states = start(pa)
+            first = finish(states)
+            other = finish(start(pb))
+            again = finish(states)
+        if again != first or other == first:
+            raise AssertionError(f"{label}: a state finished again after another start's replay "
+                                 "gave other bytes than its first finish")
+        if [sha256(j) for j in first[:1]] != [goldens[name]["jpeg_sha256"]]:
+            raise AssertionError(f"{label}: the first finish differs from the JAX golden")
+    result_a = pipeline.run_device_pipeline(pa, 255, off[name], lqa, cqa, device=dev)
+    tables_a = HuffmanTables.from_histograms(result_a)
+    first = port.encoder.pack_scan(result_a, tables_a, off[name])
+    result_b = pipeline.run_device_pipeline(pb, 255, off[name], lqa, cqa, device=dev)
+    other = port.encoder.pack_scan(result_b, HuffmanTables.from_histograms(result_b), off[name])
+    if port.encoder.pack_scan(result_a, tables_a, off[name]) != first or other == first:
+        raise AssertionError("pack_scan of one two-dispatch result twice, another replay between: "
+                             "the bytes differ")
+    del result_a, result_b
+    log(f"{name}: each of {', '.join(refinish)} finished twice, a start of another image replaying "
+        "its instance between the finishes: the first finish's bytes and tables again (the first "
+        "== the JAX golden); pack_scan of one two-dispatch result twice, another image's replays "
+        "between: the same bytes")
+
+    # eager enqueue against replay in 10 alternating rounds: the host time of
+    # each half of a 4K two-dispatch encode on pixels already on the card
+    # (the first half's enqueue; the pack's table upload and enqueue, fused
+    # and staged; what follows each, the histogram fetch, the host tables,
+    # the word fetch and the tail, is the same in both arms), the 4K e2e
+    # (fused and staged pack), 16 x 1080p fused_batch=16 and the sharded
+    # two-dispatch at n=2 on one card (past a table bound, and staged)
+    off4 = off["4k_p420"]
+    lpm4 = cfg4.chroma_subsampling.luma_blocks_per_mcu
+
+    def first_half(arm):
+        t0 = time.perf_counter()
+        result = (pipeline.device_phase(dpx, 255, off4, lq4, cq4) if arm == "eager"
+                  else pipeline.run_device_pipeline(dpx, 255, off4, lq4, cq4))
+        return result, (time.perf_counter() - t0) * 1e3
+
+    def pack_half(arm, result, staged):
+        tables = HuffmanTables.from_histograms(result)
+        hists = (result.luma_dc_hist, result.luma_ac_hist, result.chroma_dc_hist,
+                 result.chroma_ac_hist)
+        known = exact_scan_bits(hists, *tables.flat())
+        nl, nc = int(result.luma.shape[0]), int(result.cb.shape[0])
+        n_words = (device_pack.words_capacity((known + 31) // 32 + 2) if staged
+                   else (nl + 2 * nc) * 64 + 2)
+        values = device_pack.pack_values([tables.flat()], [0])
+        if arm == "eager":
+            t0 = time.perf_counter()
+            words, _ = device_pack.pack_enqueue(result.luma[None], result.cb[None], result.cr[None],
+                                                lpm4, upload(values, dev), n_words, not staged)
+            ms = (time.perf_counter() - t0) * 1e3
+            words[:1].cpu()
+            return ms
+        cache = device_pack._compiled_pack if staged else device_pack._compiled_fused_pack
+        pool = cache(nl, nc, lpm4, n_words, dpx.device)
+        program = pool.lease()
+        try:
+            t0 = time.perf_counter()
+            ((words, _),) = program.run((result.luma, result.cb, result.cr, values), 0)
+            ms = (time.perf_counter() - t0) * 1e3
+            words[:1].cpu()
+        finally:
+            pool.give_back(program)
+        return ms
+
+    def arm_of(arm, ctx):
+        return ctx() if arm == "eager" else contextlib.nullcontext()
+
+    packs = {"fused": {}, "staged": {"DMMT_NO_FUSED_PACK": "1"}}
+    timed = {
+        **{f"e2e {p}": (lambda p=p: port.encode_array(four_k, 255, off4, device=dev), packs[p],
+                        eager_two_dispatch, mpix4) for p in packs},
+        "fused_batch 16 x 1080p": (fused16, {}, eager_two_dispatch,
+                                   f16["n"] * f16["height"] * f16["width"] / 1e6),
+        **{f"sharded n=2 {label}": (lambda: port.encode_array(four_k, 255, cfg2, device=on_card(2)),
+                                    env, eager_sharded, mpix4)
+           for label, env, _, _ in sharded_two},
+    }
+    bounds_of = {f"sharded n=2 {label}": symbols for label, _, symbols, _ in sharded_two}
+    two_samples = {f"{k} {arm}": [] for k in (*(f"host {p}" for p in packs),
+                                              *(f"first half {p}" for p in packs),
+                                              *(f"pack {p}" for p in packs), *timed)
+                   for arm in ("eager", "graph")}
+    for order in (("eager", "graph"), ("graph", "eager")) * 5:
+        for arm in order:
+            for p, env in packs.items():
+                with scoped_env(env):
+                    for _ in range(5):
+                        result, t_first = first_half(arm)
+                        t_pack = pack_half(arm, result, p == "staged")
+                        del result
+                        two_samples[f"first half {p} {arm}"].append(t_first)
+                        two_samples[f"pack {p} {arm}"].append(t_pack)
+                        two_samples[f"host {p} {arm}"].append(t_first + t_pack)
+            for k, (fn, env, ctx, _) in timed.items():
+                with scoped_env(env), lowered_bound(bounds_of.get(k, onedispatch.MAX_DEVICE_TABLE_SYMBOLS)), \
+                        arm_of(arm, ctx):
+                    t0 = time.perf_counter()
+                    fn()
+                    two_samples[f"{k} {arm}"].append((time.perf_counter() - t0) * 1e3)
+    mp_of = {k: mp for k, (_, _, _, mp) in timed.items()}
+    for k, v in two_samples.items():
+        med = statistics.median(v)
+        base = k.rsplit(" ", 1)[0]
+        rate = f", {mp_of[base] / med * 1e3:.1f} Mpix/s" if base in mp_of else ""
+        log(f"two-dispatch {k}: median {med:.4f} ms ({min(v):.4f}-{max(v):.4f}) of {len(v)}{rate} "
+            f"on {gpu}")
+    instances = sorted((p.idle[0].kind, p.idle[0].bytes, len(p.idle)) for p in list(onedispatch._POOLS)
+                       if p.idle and p.idle[0].kind in two_kinds)
+    log("two-dispatch programs' instances (kind, graph pool bytes, idle instances): "
+        f"{instances}; all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda."
+        f"memory_reserved {torch.cuda.memory_reserved(dev)} bytes; graph replays so far "
+        f"{json.dumps(replays)}; phase {time.perf_counter() - t_phase:.1f} s")
 
     # --- 6. the bench stage and the projection -------------------------------
     # the bench in its own process, whose launch counts start at 0 and are

@@ -26,7 +26,15 @@ Counterpart of dmmt_jpeg_encoder_tpu.bitstream.device_pack:
 - `device_pack_scan` / `device_pack_scan_batch`: the two-dispatch pack of
   one image (the scan-pack kernel, or with DMMT_NO_FUSED_PACK=1 the staged
   pack) and of a fused batch (the staged pack, each image's stream at a
-  word-aligned base, one fetch), given the exact stream length.
+  word-aligned base, one fetch), given the exact stream length. On a card
+  each is one replay of a program (`_compiled_fused_pack`, `_compiled_pack`,
+  `_compiled_pack_batch`, maxsize 64 / 32 / 16 as in the JAX package) of
+  `pack_enqueue`, which the CPU runs eagerly: the blocks are copied into
+  the program's inputs, the host tables and word bases (`pack_values`)
+  through its pinned staging, and the instance is given back after the
+  word fetch. The staged packs' word buffers are the JAX package's
+  power-of-two bucket (`words_capacity`), so one program serves many
+  streams; the fused pack keeps the worst case of the shape.
 - `finalize_scan_bytes` / `exact_scan_bits`: host numpy.
 
 Table lookups assume every symbol present in the data has a codeword,
@@ -43,6 +51,7 @@ import torch
 
 from ..entropy.categorize import magnitude_category, running_max, running_sum
 from ..ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
+from ..utils.capability import mode_keyed_cache
 from ..utils.device import upload
 
 # Static per-block worst case: DC 31 bits, 63 AC emissions of <=31 bits,
@@ -373,19 +382,49 @@ def check_bits_enabled() -> bool:
     return bool(os.environ.get("DMMT_CHECK_BITS"))
 
 
+def pack_values(tables: list[tuple], word_off) -> np.ndarray:
+    """What the host gives a two-dispatch pack, as one int32 vector (one
+    upload, or one copy into a program's input): per image (ldc, lac, cdc,
+    cac) flat code arrays and each image's stream base in words ->
+    codes [B, 4, 256], lens [B, 4, 256], word_off [B], flattened."""
+    codes, lens = _flat_tables(tables)
+    return np.concatenate([codes.reshape(-1), lens.reshape(-1),
+                           np.asarray(word_off, dtype=np.int32)])
+
+
+def unpack_values(values: torch.Tensor, n_images: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """pack_values' vector on the device -> (codes int32 [B, 4, 256], lens
+    int32 [B, 4, 256], each image's stream base in bits, int64 [B])."""
+    n = n_images * 4 * 256
+    codes = values[:n].reshape(n_images, 4, 256)
+    lens = values[n : 2 * n].reshape(n_images, 4, 256)
+    return codes, lens, values[2 * n :].to(torch.int64) * 32
+
+
+def words_capacity(needed_words: int) -> int:
+    """The staged pack's word buffer for a stream of needed_words words:
+    the JAX package's power-of-two bucket (bitstream/device_pack.py:
+    `1 << max(12, needed.bit_length())`), so that one program serves many
+    streams."""
+    return 1 << max(12, int(needed_words).bit_length())
+
+
 def batch_emissions(
     luma: torch.Tensor,
     cb: torch.Tensor,
     cr: torch.Tensor,
     luma_per_mcu: int,
-    tables: list[tuple],
-    word_off: np.ndarray,
+    codes: torch.Tensor,
+    lens: torch.Tensor,
+    word_base: torch.Tensor,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """The staged pack's inputs for B images: luma [B, NL, 64] and cb/cr
-    [B, NC, 64] DPCM'd blocks on the device, per image (ldc, lac, cdc, cac)
-    flat code arrays, and each image's stream base in words (int [B]) ->
-    (block_emissions of the B scans, each image with its own tables;
-    boff int64 [B * NS], each block's stream bit offset)."""
+    [B, NC, 64] DPCM'd blocks, each image's flat code arrays codes/lens
+    int32 [B, 4, 256] and its stream base in bits word_base int64 [B], all
+    on the blocks' device (unpack_values) -> (block_emissions of the B
+    scans, each image with its own tables; boff int64 [B * NS], each
+    block's stream bit offset)."""
     b, n_chroma = int(luma.shape[0]), int(cb.shape[1])
     dev = luma.device
     # each image's MCUs are contiguous, so the batch's interleave is the
@@ -397,12 +436,121 @@ def batch_emissions(
     chroma = chroma_index(int(scan.shape[0]), luma_per_mcu + 2, luma_per_mcu, dev)
     table_idx = (torch.arange(b, dtype=torch.int32, device=dev)[:, None] * 2
                  + chroma.reshape(b, -1)).reshape(-1)
-    codes, lens = (upload(x, dev) for x in _flat_tables(tables))
     dc_comb, ac_comb = _stacked_tables(codes, lens)
     emissions = block_emissions(scan, table_idx, dc_comb, ac_comb, groups=b)
     bb = emissions[3].reshape(b, -1).to(torch.int64)
-    word_base = upload(np.asarray(word_off, dtype=np.int64) * 32, dev)
     return emissions, (word_base[:, None] + _exclusive_cumsum(bb, dim=1)).reshape(-1)
+
+
+def pack_enqueue(
+    luma: torch.Tensor,
+    cb: torch.Tensor,
+    cr: torch.Tensor,
+    luma_per_mcu: int,
+    values: torch.Tensor,
+    n_words: int,
+    fused: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The second half of the two-dispatch encode, enqueued op by op: B
+    images' DPCM'd blocks (luma [B, NL, 64], cb/cr [B, NC, 64]) and
+    pack_values' vector on their device -> (memory-order words int32
+    [n_words], total bits int64). `fused` (one image): the scan interleave
+    and the scan-pack kernel; else the staged pack (block_emissions with
+    the lookup kernel, the emission-pack kernel with each image's stream at
+    its word base, byteswap_words). What the pack programs capture and
+    what the CPU runs."""
+    from .emission_pack import pack_emission_words
+    from .fused_pack import fused_pack_words
+
+    codes, lens, word_base = unpack_values(values, int(luma.shape[0]))
+    if fused:
+        lpm = luma_per_mcu
+        scan = interleave_scan(luma[0], cb[0], cr[0], int(cb.shape[1]), lpm)
+        return fused_pack_words(scan, lpm + 2, lpm, codes[0], lens[0], n_words)
+    emissions, boff = batch_emissions(luma, cb, cr, luma_per_mcu, codes, lens, word_base)
+    words, total_bits = pack_emission_words(*emissions, n_words, boff=boff)
+    return byteswap_words(words), total_bits
+
+
+def stage_values(target: torch.Tensor, staging: torch.Tensor, host: np.ndarray) -> None:
+    """Copy a host vector into a program's device input through the
+    instance's own host staging buffer (pinned on a card): one write and
+    one asynchronous copy on the current stream."""
+    staging.numpy()[...] = host
+    target.copy_(staging, non_blocking=True)
+
+
+def _fill_pack(inputs: tuple, args: tuple, _maxval: int) -> None:
+    """A pack program's fill: the blocks into its block inputs (device to
+    device), pack_values' vector through its staging buffer."""
+    *blocks, values, staging = inputs
+    *sources, host = args
+    for dst, src in zip(blocks, sources):
+        dst.copy_(src.reshape(dst.shape))
+    stage_values(values, staging, host)
+
+
+def _pack_pool(kind: str, n_images: int, n_luma: int, n_chroma: int, luma_per_mcu: int,
+               n_words: int, device: torch.device, fused: bool):
+    """A pool of one pack program: inputs luma [B, NL, 64], cb and cr
+    [B, NC, 64] (int16), pack_values' vector and its host staging;
+    pack_enqueue over them."""
+    from ..onedispatch import HostStaging, _pool
+
+    n_values = n_images * (2 * 4 * 256 + 1)
+    shapes = ((n_images, n_luma, 64), (n_images, n_chroma, 64), (n_images, n_chroma, 64),
+              (n_values,), (n_values,))
+    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, HostStaging(torch.int32))
+
+    def enqueue(inputs, _state):
+        luma, cb, cr, values, _ = inputs
+        return [pack_enqueue(luma, cb, cr, luma_per_mcu, values, n_words, fused)]
+
+    return _pool(kind, shapes, dtypes, device, enqueue, _fill_pack)
+
+
+@mode_keyed_cache(maxsize=64)
+def _compiled_fused_pack(n_luma: int, n_chroma: int, luma_per_mcu: int, n_words: int,
+                         device: torch.device):
+    """One image's fused pack: the scan interleave and the scan-pack
+    kernel. Keyed as the JAX package's program (its sweep-table sizes have
+    no counterpart: the kernel holds the whole tables), plus the device;
+    n_words is the worst case of the shape."""
+    return _pack_pool("fused_pack", 1, n_luma, n_chroma, luma_per_mcu, n_words, device, True)
+
+
+@mode_keyed_cache(maxsize=32)
+def _compiled_pack(n_luma: int, n_chroma: int, luma_per_mcu: int, n_words: int,
+                   device: torch.device):
+    """One image's staged pack (DMMT_NO_FUSED_PACK=1), n_words a
+    words_capacity bucket. Keyed as the JAX package's program, plus the
+    device."""
+    return _pack_pool("pack", 1, n_luma, n_chroma, luma_per_mcu, n_words, device, False)
+
+
+@mode_keyed_cache(maxsize=16)
+def _compiled_pack_batch(n_images: int, n_luma: int, n_chroma: int, luma_per_mcu: int,
+                         words_cap: int, device: torch.device):
+    """A fused_batch chunk's staged pack, words_cap a words_capacity
+    bucket. Keyed as the JAX package's program, plus the device."""
+    return _pack_pool("pack_batch", n_images, n_luma, n_chroma, luma_per_mcu, words_cap, device,
+                      False)
+
+
+def _checked_bytes(known_bits: int):
+    """The read of one image's pack: with DMMT_CHECK_BITS set, the packed
+    bit count against `known_bits`; then one fetch of the needed words and
+    the host tail."""
+
+    def read(words: torch.Tensor, total_bits: torch.Tensor) -> bytes:
+        if check_bits_enabled() and int(total_bits.sum()) != known_bits:
+            raise AssertionError(
+                f"device packed {int(total_bits.sum())} scan bits but the histograms "
+                f"predict {known_bits}"
+            )
+        return finalize_scan_bytes(words[: (known_bits + 31) // 32].cpu().numpy(), known_bits)
+
+    return read
 
 
 def device_pack_scan(
@@ -417,31 +565,32 @@ def device_pack_scan(
     known_bits: int,
 ) -> bytes:
     """Pack one image's DPCM'd zigzag blocks (luma in MCU order, on their
-    device) with host-built flat code arrays into stuffed scan bytes.
+    device) with host-built flat code arrays into stuffed scan bytes: the
+    scan-pack kernel, or with DMMT_NO_FUSED_PACK set the staged pack.
     `known_bits` (exact_scan_bits of the histograms) is the stream length,
     so one fetch of the needed words follows the pack. With DMMT_CHECK_BITS
-    set, the packed bit count is checked against it first."""
-    from .emission_pack import pack_emission_words
-    from .fused_pack import fused_pack_words
+    set, the packed bit count is checked against it first. On a card: one
+    replay of the program (_compiled_fused_pack or _compiled_pack), whose
+    instance is given back after the fetch; on the CPU: pack_enqueue."""
+    from ..pipeline import program_card
 
-    needed = (known_bits + 31) // 32
-    if _use_fused_pack():
-        lpm = luma_per_mcu
-        scan = interleave_scan(luma, cb, cr, int(cb.shape[0]), lpm)
-        codes, lens = (upload(x[0], scan.device) for x in _flat_tables([(ldc, lac, cdc, cac)]))
-        n_words = int(scan.shape[0]) * (MAX_BLOCK_BITS // 32) + 2
-        words, total_bits = fused_pack_words(scan, lpm + 2, lpm, codes, lens, n_words)
+    n_luma, n_chroma = int(luma.shape[0]), int(cb.shape[0])
+    fused = _use_fused_pack()
+    if fused:
+        n_words = (n_luma + 2 * n_chroma) * (MAX_BLOCK_BITS // 32) + 2
     else:
-        emissions, boff = batch_emissions(luma[None], cb[None], cr[None], luma_per_mcu,
-                                          [(ldc, lac, cdc, cac)], np.zeros(1, np.int64))
-        words, total_bits = pack_emission_words(*emissions, needed + 2, boff=boff)
-        words = byteswap_words(words)
-    if check_bits_enabled() and int(total_bits.sum()) != known_bits:
-        raise AssertionError(
-            f"device packed {int(total_bits.sum())} scan bits but the histograms "
-            f"predict {known_bits}"
-        )
-    return finalize_scan_bytes(words[:needed].cpu().numpy(), known_bits)
+        n_words = words_capacity((known_bits + 31) // 32 + 2)
+    values = pack_values([(ldc, lac, cdc, cac)], [0])
+    read = _checked_bytes(known_bits)
+    card = program_card(luma, luma.device)
+    if card is None:
+        return read(*pack_enqueue(luma[None], cb[None], cr[None], luma_per_mcu,
+                                  upload(values, luma.device), n_words, fused))
+    from ..onedispatch import _run_once
+
+    cache = _compiled_fused_pack if fused else _compiled_pack
+    pool = cache(n_luma, n_chroma, luma_per_mcu, n_words, card)
+    return _run_once(pool, (luma, cb, cr, values), read)
 
 
 def device_pack_scan_batch(
@@ -456,20 +605,34 @@ def device_pack_scan_batch(
     [B, NC, 64] DPCM'd blocks on the device, per image (ldc, lac, cdc, cac)
     flat code arrays, and each image's EXACT stream bits (exact_scan_bits).
     Each image's stream starts at a word-aligned base, so one fetch of the
-    first total_words words returns all streams; the word buffer holds
-    those words + 2."""
-    from .emission_pack import pack_emission_words
+    first total_words words returns all streams; the word buffer is the
+    JAX package's bucket of total_words + B. On a card: one replay of the
+    program (_compiled_pack_batch); on the CPU: pack_enqueue."""
+    from ..pipeline import program_card
 
+    b, n_luma = (int(x) for x in luma.shape[:2])
+    n_chroma = int(cb.shape[1])
     n_words = [(bits + 31) // 32 for bits in bits_per_image]
     word_off = np.concatenate([[0], np.cumsum(n_words)[:-1]]).astype(np.int64)
     total_words = int(sum(n_words))
-    emissions, boff = batch_emissions(luma, cb, cr, luma_per_mcu, tables, word_off)
-    words, _ = pack_emission_words(*emissions, total_words + 2, boff=boff)
-    host = byteswap_words(words[:total_words]).cpu().numpy()
-    return [
-        finalize_scan_bytes(host[off : off + n], bits)
-        for off, n, bits in zip(word_off, n_words, bits_per_image)
-    ]
+    words_cap = words_capacity(total_words + b)
+    values = pack_values(tables, word_off)
+
+    def read(words: torch.Tensor, _total_bits: torch.Tensor) -> list[bytes]:
+        host = words[:total_words].cpu().numpy()
+        return [
+            finalize_scan_bytes(host[off : off + n], bits)
+            for off, n, bits in zip(word_off, n_words, bits_per_image)
+        ]
+
+    card = program_card(luma, luma.device)
+    if card is None:
+        return read(*pack_enqueue(luma, cb, cr, luma_per_mcu, upload(values, luma.device),
+                                  words_cap))
+    from ..onedispatch import _run_once
+
+    pool = _compiled_pack_batch(b, n_luma, n_chroma, luma_per_mcu, words_cap, card)
+    return _run_once(pool, (luma, cb, cr, values), read)
 
 
 def finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:

@@ -133,9 +133,12 @@ class EncoderConfig:
     """Everything the encode pipeline needs besides the pixels.
 
     Mirrors `JpegTransformationOptions` (reference: src/image/writer/jpeg.rs:25-39)
-    plus the JAX package's device knobs (this port runs the ARAI,
-    single-device, device-packed, one-dispatch subset; encoder.py raises
-    NotImplementedError for the rest).
+    plus the JAX package's device knobs. The port encodes every config the
+    JAX package does: every DCT variant, shards, scan backend and dispatch
+    mode. The one-dispatch start functions raise NotImplementedError for
+    an image past the device table build's bound (encoder.py sends it down
+    the two-dispatch path), and so does the multi-process encode
+    (parallel/multihost.py) outside the one-dispatch sharded encode.
     """
 
     chroma_subsampling: ChromaSubsamplingPreset = ChromaSubsamplingPreset.P420
@@ -144,21 +147,21 @@ class EncoderConfig:
     dct_variant: DCTVariant = DCTVariant.ARAI
     # Number of mesh shards for multi-chip encode (1 = single chip).
     num_shards: int = 1
-    # Entropy-scan assembly: "device" packs the bitstream on the accelerator
+    # Entropy-scan assembly: "device" packs the bitstream on the device
     # (bitstream/device_pack.py, ~64x smaller device->host transfer), "host"
-    # re-encodes coefficients with the native-C/Python packer, "auto" picks
-    # device on accelerators and host-C on the CPU backend.
+    # re-encodes coefficients with the native-C/Python packer; "auto" is
+    # "device" (encoder._resolve_backend).
     scan_backend: str = "auto"
     # IJG quality (1..100) scaling applied to the quantization preset, or
     # None for the preset's raw tables (the reference has fixed presets
     # only; this extension enables standard quality sweeps).
     quality: int | None = None
     # One-dispatch encode: Huffman tables built ON DEVICE and the scan
-    # packed in the same jit program as the pipeline (onedispatch.py) —
-    # no mid-encode host sync, no content-dependent recompiles. "auto"
-    # uses it whenever the device packer is active and the image is within
-    # the device table build's exactness bound; "off" forces the
-    # two-dispatch host-table path.
+    # packed in the same program as the pipeline (onedispatch.py; one CUDA
+    # graph on a card) with no mid-encode host sync. "auto" uses it
+    # whenever the device packer is active and the image is within the
+    # device table build's exactness bound; "off" forces the two-dispatch
+    # host-table path (two programs on a card).
     one_dispatch: str = "auto"
 
     def __post_init__(self) -> None:

@@ -7,7 +7,11 @@ scan_backend="host" and for images past the device table build's
 exactness bound: the device phase
 (pipeline.run_device_pipeline), one fetch of the four histograms and the
 host package-merge tables (HuffmanTables.from_histograms), then the device
-pack or the host C/Python packer (pack_scan). `encode_batch` runs many
+pack or the host C/Python packer (pack_scan). On a card each device half
+of the two-dispatch encode is one replay of a captured program
+(pipeline.py, bitstream/device_pack.py), as each one-dispatch start is
+(onedispatch.py); a first half's result holds its program until it is
+collected, so pack_scan may read it any number of times. `encode_batch` runs many
 images as a pipeline of row-stacked slab groups or of single images, or
 with fused_batch > 1 as chunks of one batched device phase and one batched
 pack each. Their bytes equal the JAX package's for every input the port

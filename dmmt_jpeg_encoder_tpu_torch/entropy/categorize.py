@@ -98,17 +98,21 @@ def symbol_histograms(
     return dc_hist, ac_hist
 
 
-def batched_symbol_histograms(coeffs_zz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def batched_symbol_histograms(
+    coeffs_zz: torch.Tensor, state: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-image histograms for [B, N, 64] blocks -> int32 ([B, 16],
-    [B, 256]), each as symbol_histograms gives it for one image."""
+    [B, 256]), each as symbol_histograms gives it for one image. `state`:
+    the weighted-histogram kernel's state, as for symbol_histograms."""
     from ..ops.histogram import histogram_grouped
 
     b, n, _ = coeffs_zz.shape
     flat = coeffs_zz.reshape(b * n, 64)
     dc_cat = magnitude_category(flat[:, 0]).reshape(b, n)
-    dc_hist = histogram_grouped(dc_cat, torch.ones_like(dc_cat), 16)
+    dc_hist = histogram_grouped(dc_cat, torch.ones_like(dc_cat), 16, state)
     symbols, nz, zrl, eob = ac_symbols_and_structure(flat)
-    ac_hist = histogram_grouped(symbols.reshape(b, -1), nz.reshape(b, -1).to(torch.int32), 256)
+    ac_hist = histogram_grouped(symbols.reshape(b, -1), nz.reshape(b, -1).to(torch.int32), 256,
+                                state)
     ac_hist[:, 0xF0] += zrl.reshape(b, -1).sum(dim=1, dtype=torch.int32)
     ac_hist[:, 0x00] += eob.reshape(b, n).sum(dim=1, dtype=torch.int32)
     return dc_hist, ac_hist

@@ -17,10 +17,12 @@ JAX reference) and `-prec-div=true` (IEEE division); never
 Every C entry point takes PyTorch's current stream and returns
 `cudaGetLastError()` after its launches; `check` raises on a nonzero
 code. Each kernel wrapper adds one to its count in `LAUNCHES` where it
-launches its kernel, and nowhere else. A captured one-dispatch program
-(onedispatch.py, and the sharded ones of parallel/sharding.py) launches its kernels when its CUDA graph replays, not
-where its wrappers ran: it keeps the counts its capture added, adds them
-again on every replay, and adds one to its kind's count in `REPLAYS`.
+launches its kernel, and nowhere else. A captured program (onedispatch.py's
+_Program: the one-dispatch starts, the sharded ones of
+parallel/sharding.py, the two-dispatch halves) launches its kernels when
+its CUDA graph replays, not where its wrappers ran: it keeps the counts
+its capture added, adds them again on every replay, and adds one to its
+kind's count in `REPLAYS`.
 """
 
 from __future__ import annotations
@@ -49,9 +51,13 @@ LAUNCHES: dict[str, int] = {
     "plane_dct_mm_high": 0, "phase1_mm_high": 0,
 }
 
-# one-dispatch program kind -> CUDA graph replays since the last reset
+# captured program kind -> CUDA graph replays since the last reset: the
+# one-dispatch starts, then the two-dispatch halves (pipeline.py,
+# bitstream/device_pack.py, parallel/sharding.py)
 REPLAYS: dict[str, int] = {"onedispatch": 0, "onedispatch_slab": 0, "onedispatch_multi": 0,
-                           "sharded_onedispatch": 0, "sharded_onedispatch_slab": 0}
+                           "sharded_onedispatch": 0, "sharded_onedispatch_slab": 0,
+                           "pipeline": 0, "pipeline_batch": 0, "fused_pack": 0, "pack": 0,
+                           "pack_batch": 0, "sharded": 0, "shard_pack": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

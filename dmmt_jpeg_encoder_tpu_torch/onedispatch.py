@@ -49,8 +49,13 @@ of graph memory beyond the one being built: past it, the idle instances
 of every key are dropped, and a start raises when the leased ones alone
 hold that much. A failed capture raises; there is no eager fallback on a
 card. On the CPU the start functions run `_enqueue` eagerly (the plain
-path). The sharded programs of parallel/sharding.py use the same
-instances, pools and leases.
+path). The sharded programs of parallel/sharding.py and the two-dispatch
+halves (pipeline.py, bitstream/device_pack.py, parallel/sharding.py) use
+the same instances, pools and leases; an instance's static input may be a
+tuple of tensors, one of them host staging (static_input, HostStaging).
+Since a later replay overwrites a finished state's tensors, a finish keeps
+its result on the state, and a second finish returns it, as a JAX state,
+whose arrays never change, gives the same bytes again.
 
 Word buffers are sized for the worst case (64 words per block + 2), so
 buffers depend only on the image geometry. `prefetch_one_dispatch`
@@ -133,6 +138,9 @@ class OneDispatchState:
     hists: tuple              # the 4 histograms (DMMT_CHECK_BITS cross-check)
     small: torch.Tensor | None = None  # host copy of bits + spec (prefetch_one_dispatch)
     small_ready: torch.cuda.Event | None = None  # recorded behind that copy (CUDA)
+    # (scan bytes, HuffmanTables) of the first finish_one_dispatch, which a
+    # later finish returns: by then the device tensors may hold another start's
+    result: tuple | None = None
     # gives the start's program instance back (a weakref.finalize: runs once,
     # at finish_one_dispatch or when the state is collected); None on the CPU
     release: Callable | None = dataclasses.field(default=None, repr=False, compare=False)
@@ -401,16 +409,53 @@ _POOLS: weakref.WeakSet = weakref.WeakSet()     # every live pool
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
 
 
+@dataclass(frozen=True)
+class HostStaging:
+    """The dtype of a program input that lives in host memory (pinned on a
+    card): what a fill writes on the host and copies into a device input
+    of the same instance (the packs' tables). The instance owns it, so it
+    is rewritten only by the next start that leases the instance, after
+    the previous one has waited for its outputs."""
+
+    dtype: torch.dtype
+
+
+def static_input(shape: tuple, dtype, device: torch.device):
+    """A program's static input, zeroed: a tensor of `shape` and `dtype` on
+    `device`; for a tuple of dtypes, a tuple of such tensors, one per
+    (shape, dtype) pair. A HostStaging dtype makes host memory, pinned
+    where `device` is a card."""
+    if isinstance(dtype, tuple):
+        return tuple(static_input(s, d, device) for s, d in zip(shape, dtype))
+    if isinstance(dtype, HostStaging):
+        return torch.zeros(shape, dtype=dtype.dtype, pin_memory=device.type == "cuda")
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _handle(output):
+    """A replay's own handle on one output of the capture: a shallow copy
+    of a state, a new tensor object over a tensor's memory (so that its
+    collection can end a lease), anything else as it is."""
+    if isinstance(output, torch.Tensor):
+        return output.view_as(output)
+    if dataclasses.is_dataclass(output):
+        return dataclasses.replace(output)
+    return output
+
+
 class _Program:
     """One captured instance of a program on a card (a one-dispatch start
-    here, a sharded one on one card in parallel/sharding.py): a static
-    input (zeroed once), the CUDA graph of `enqueue(input, state)`, the
-    states its capture returned (their tensors are the graph's outputs),
-    the launch counts the capture added, and the bytes its memory pool
-    holds. `fill(input, pixels, maxval)` writes a start's samples into the
-    input (default copy_in: all of it)."""
+    here, a sharded one on one card in parallel/sharding.py, a half of the
+    two-dispatch encode in pipeline.py, bitstream/device_pack.py and
+    parallel/sharding.py): a static input (zeroed once; a tuple of them
+    where `dtype` is a tuple, static_input), the CUDA graph of
+    `enqueue(input, state)`, the outputs its capture returned (states,
+    tensors or tuples of them: the graph's outputs), the launch counts the
+    capture added, and the bytes its memory pool holds. `fill(input,
+    pixels, maxval)` writes a call's data into the input (default copy_in:
+    all of it)."""
 
-    def __init__(self, kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
+    def __init__(self, kind: str, shape: tuple, dtype, device: torch.device,
                  enqueue: Callable[[torch.Tensor, torch.Tensor | None], list],
                  fill: Callable[[torch.Tensor, object, int], None] = copy_in):
         self.kind, self.device, self.stream, self.fill = kind, device, None, fill
@@ -420,7 +465,7 @@ class _Program:
             capture = _CAPTURE_STREAMS[device.index]
             saved = build.launch_counts()
             try:
-                self.input = torch.zeros(shape, dtype=dtype, device=device)
+                self.input = static_input(shape, dtype, device)
                 capture.wait_stream(torch.cuda.current_stream(device))
                 with torch.cuda.stream(capture):
                     enqueue(self.input, None)  # warm-up, eager
@@ -442,8 +487,9 @@ class _Program:
         _PROGRAMS.add(self)
 
     def run(self, pixels, maxval: int) -> list:
-        """Copy the samples in and replay, on the current stream (after the
-        stream of the last replay, when it is another one)."""
+        """Fill the input and replay, on the current stream (after the
+        stream of the last replay, when it is another one); one _handle per
+        output of the capture."""
         with on_device(self.device):
             stream = torch.cuda.current_stream(self.device)
             if self.stream is not None and self.stream != stream:
@@ -454,7 +500,7 @@ class _Program:
         for k, n in self.launches.items():
             build.LAUNCHES[k] += n
         build.REPLAYS[self.kind] += 1
-        return [dataclasses.replace(state) for state in self.states]
+        return [_handle(state) for state in self.states]
 
 
 def graph_bytes() -> int:
@@ -474,7 +520,7 @@ def _make_room() -> None:
     gc.collect()
     if graph_bytes() >= GRAPH_MAX_BYTES:
         raise RuntimeError(
-            f"one-dispatch programs in use hold {graph_bytes()} bytes of graph memory, at least "
+            f"captured programs in use hold {graph_bytes()} bytes of graph memory, at least "
             f"GRAPH_MAX_BYTES ({GRAPH_MAX_BYTES}); finish or drop started states first")
 
 
@@ -515,7 +561,8 @@ class _Lease:
 
 def _start(pool: _Pool, pixels, maxval: int) -> list:
     """Lease an instance of `pool`, run it on the samples, and tie its
-    lease to the states it returns."""
+    lease to the states it returns (a state's `release`, or a tensor's
+    collection)."""
     program = pool.lease()
     try:
         states = program.run(pixels, maxval)
@@ -524,8 +571,22 @@ def _start(pool: _Pool, pixels, maxval: int) -> list:
         raise
     lease = _Lease(pool, program, len(states))
     for state in states:
-        state.release = weakref.finalize(state, lease.release_one)
+        release = weakref.finalize(state, lease.release_one)
+        if not isinstance(state, torch.Tensor):
+            state.release = release
     return states
+
+
+def _run_once(pool: _Pool, args, read: Callable):
+    """Lease an instance of `pool`, run it on `args`, and return
+    `read(*output)` of its one output; the instance is given back once
+    `read` has waited for what it needs (nothing of it escapes)."""
+    program = pool.lease()
+    try:
+        (output,) = program.run(args, 0)
+        return read(*output)
+    finally:
+        pool.give_back(program)
 
 
 def _pool(kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
@@ -649,10 +710,13 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
     accepted for the JAX package's call form and not read, as in
     prefetch_one_dispatch. On a card it then gives the start's program
     instance back: the state's device tensors belong to the next start
-    that replays it.
+    that replays it. The result stays on the state, so a later finish
+    returns the same bytes and tables, as in the JAX package.
 
     With DMMT_CHECK_BITS set, the packed bit count is cross-checked against
     the histograms x code lengths prediction (exact_scan_bits)."""
+    if state.result is not None:
+        return state.result
     prefetch_one_dispatch(state)
     if state.small_ready is not None:
         state.small_ready.synchronize()
@@ -675,7 +739,7 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
                 f"one-dispatch packed {nbits} bits but histograms x device "
                 f"tables predict {predicted}"
             )
-    scan = finalize_scan_bytes(_fetch_words(state, (nbits + 31) // 32), nbits)
+    state.result = finalize_scan_bytes(_fetch_words(state, (nbits + 31) // 32), nbits), tables
     if state.release is not None:
         state.release()  # its instance may replay again
-    return scan, tables
+    return state.result

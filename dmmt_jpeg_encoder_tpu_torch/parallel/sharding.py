@@ -60,12 +60,16 @@ start copies the samples into the MCU-padded input of a leased instance
 (whose padding is zeroed once, when it is made) and replays it; the state
 holds the lease until finish_sharded_encode(_slab) or until it is
 collected. The key is the JAX key (without the multi-process program's
-`gather`) plus what onedispatch.program_key adds. A device list that
-names several distinct cards keeps the op-by-op enqueue: torch captures a
-graph on one device's stream and memory pool, and the DC hand-off and
-the histogram sum cross cards in the middle of the encode. The CPU runs
-`_enqueue` eagerly too, after the staging copies (upload_slabs). A
-failed capture raises.
+`gather`) plus what onedispatch.program_key adds. The two-dispatch encode
+is two programs there, as in the JAX package: `_compiled_sharded` (16;
+`_enqueue` without the tables and packs) replayed by the start (and by
+run_sharded_pipeline), and `_compiled_shard_pack` (16; every shard's
+pack from its blocks copied in and the host tables) replayed by the
+finish. A device list that names several distinct cards keeps the
+op-by-op enqueue: torch captures a graph on one device's stream and
+memory pool, and the DC hand-off and the histogram sum cross cards in the
+middle of the encode. The CPU runs `_enqueue` eagerly too, after the
+staging copies (upload_slabs). A failed capture raises.
 """
 
 from __future__ import annotations
@@ -79,12 +83,15 @@ import torch
 
 from .. import onedispatch as od
 from ..bitstream.device_pack import (
-    _flat_tables,
     _use_fused_pack,
     check_bits_enabled,
     exact_scan_bits,
     interleave_scan,
+    pack_values,
+    stage_values,
     staged_pack_words,
+    unpack_values,
+    words_capacity,
 )
 from ..bitstream.fused_pack import fused_pack_words, fused_pack_words_slab
 from ..config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
@@ -189,8 +196,18 @@ class Geometry:
     def scan_mask(self, shard: int, device: torch.device) -> torch.Tensor:
         """int32 [n_scan]: 1 for the shard's blocks inside the image (a prefix
         in scan order)."""
-        valid = self.valid_rows(shard) * (self.pw // self.preset.mcu_width) * (self.lpm + 2)
-        return (torch.arange(self.n_scan, device=device) < valid).to(torch.int32)
+        return scan_prefix_mask(self.n_scan, shard, self.rows_per_shard, self.valid_mcu_rows,
+                                self.pw // self.preset.mcu_width, self.lpm, device)
+
+
+def scan_prefix_mask(n_scan: int, shard: int, rows_per_shard: int, valid_mcu_rows: int,
+                     mcus_per_row: int, luma_per_mcu: int, device: torch.device) -> torch.Tensor:
+    """int32 [n_scan]: 1 for shard `shard`'s scan-order blocks inside the
+    image, a prefix of its valid MCU rows (Geometry.valid_rows), from the
+    numbers the JAX package's shard pack is keyed on."""
+    rows = min(max(valid_mcu_rows - shard * rows_per_shard, 0), rows_per_shard)
+    valid = rows * mcus_per_row * (luma_per_mcu + 2)
+    return (torch.arange(n_scan, device=device) < valid).to(torch.int32)
 
 
 def drop_alignment_blocks(
@@ -434,9 +451,10 @@ def pack_shard(
 class ShardedState:
     """An enqueued sharded encode of n_images same-geometry images. The
     states a program's replays return share `blocks`, `words` and `bits`
-    with its capture's: nothing changes a one-dispatch state's lists after
-    `_enqueue` (only the two-dispatch finish appends, to a state no program
-    returns)."""
+    with its capture's (and their tensors are the graph's outputs), so
+    nothing changes a state's lists after `_enqueue`: the two-dispatch
+    finish packs into lists of its own. A finish keeps its result on the
+    state, and a later finish returns it."""
 
     kind: str                      # "onedispatch" or "twodispatch"
     geom: Geometry
@@ -449,6 +467,8 @@ class ShardedState:
     tables: dict | None = None     # device tables of the one-dispatch encode
     small: torch.Tensor | None = None        # host copy of bits + table spec
     small_ready: torch.cuda.Event | None = None
+    # [(scan bytes, HuffmanTables)] per image of the first finish
+    result: list | None = None
     # gives the start's program instance back (a weakref.finalize: runs
     # once, at the finish or when the state is collected); None when eager
     release: Callable | None = field(default=None, repr=False, compare=False)
@@ -523,9 +543,9 @@ def _start(frames: list[np.ndarray], maxval: int, config: EncoderConfig,
 
 
 def _program_card(pixels, devices: list[torch.device]) -> torch.device | None:
-    """The card a start replays its program on: every shard on that one
-    card; None (the eager enqueue) for the CPU or several distinct
-    devices."""
+    """The card a start (or a two-dispatch finish's pack) replays its
+    program on: every shard on that one card; None (the eager enqueue) for
+    the CPU or several distinct devices."""
     if len(set(devices)) != 1:
         return None
     dev = od._target(pixels, devices[0])
@@ -534,19 +554,41 @@ def _program_card(pixels, devices: list[torch.device]) -> torch.device | None:
 
 def _replay(pool, pixels, maxval: int) -> ShardedState:
     """Lease an instance of `pool`, copy the samples in, replay it, and
-    enqueue the small copy behind it."""
+    (one-dispatch) enqueue the small copy behind it."""
     state = od._start(pool, pixels, maxval)[0]
-    _prefetch(state)
+    if state.kind == "onedispatch":
+        _prefetch(state)
     return state
+
+
+def _sharded_start(pixels: np.ndarray, maxval: int, config: EncoderConfig,
+                   devices: list[torch.device], onedispatch: bool,
+                   luma_q: np.ndarray | None = None,
+                   chroma_q: np.ndarray | None = None) -> ShardedState:
+    """One image's sharded start: with every shard on one card one replay
+    of the program (_compiled_sharded_onedispatch, or _compiled_sharded for
+    the two-dispatch encode); otherwise `_start`, op by op."""
+    if luma_q is None or chroma_q is None:
+        luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
+    card = _program_card(pixels, devices)
+    if card is None:
+        return _start([pixels], maxval, config, devices, onedispatch, luma_q, chroma_q)
+    kernels_on(devices)  # the probe, outside any capture (the enqueue reads its result)
+    cache = _compiled_sharded_onedispatch if onedispatch else _compiled_sharded
+    pool = cache(int(pixels.shape[0]), int(pixels.shape[1]), config.chroma_subsampling,
+                 config.dct_variant, config.num_shards,
+                 *od.program_key(pixels, maxval, luma_q, chroma_q, card))
+    return _replay(pool, pixels, maxval)
 
 
 def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: int,
                   preset: ChromaSubsamplingPreset, variant: DCTVariant, num_shards: int,
                   device: torch.device, dtype: torch.dtype, maxval: int, luma_key: tuple,
-                  chroma_key: tuple, onepack: bool):
+                  chroma_key: tuple, onepack: bool, onedispatch: bool = True):
     """A pool of the sharded program over an MCU-padded input of `shape`
     ([ph, pw, 3], or [B, ph, pw, 3] for the slab): shard_slabs, then
-    `_enqueue` with every shard on the program's card. A start writes its
+    `_enqueue` with every shard on the program's card (onedispatch False:
+    the two-dispatch encode's phase 1 and histograms). A start writes its
     samples into the input's [:height, :width] (each image's, for the
     slab), so the padding stays black."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant, num_shards=num_shards)
@@ -555,7 +597,7 @@ def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: in
 
     def enqueue(x, state):
         return [_enqueue(shard_slabs(x, geom), n_images, maxval, config, lq, cq, geom,
-                         [x.device] * num_shards, True, onepack, state)]
+                         [x.device] * num_shards, onedispatch, onepack, state)]
 
     def fill(x, pixels, maxval):
         if len(shape) == 3:
@@ -565,6 +607,19 @@ def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: in
                 od.copy_in(x[i, :height, :width], px, maxval)
 
     return od._pool(kind, shape, dtype, device, enqueue, fill)
+
+
+@mode_keyed_cache(maxsize=16)
+def _compiled_sharded(height: int, width: int, preset: ChromaSubsamplingPreset,
+                      variant: DCTVariant, num_shards: int, device: torch.device,
+                      dtype: torch.dtype, maxval: int, luma_key: tuple, chroma_key: tuple):
+    """The sharded two-dispatch encode's first half of one image on one
+    card: every shard's phase 1, the DC hand-off and the per-shard
+    histograms, gathered."""
+    geom = Geometry.of(height, width, preset, num_shards)
+    return _sharded_pool("sharded", (geom.ph, geom.pw, 3), 1, height, width, preset, variant,
+                         num_shards, device, dtype, maxval, luma_key, chroma_key, False,
+                         onedispatch=False)
 
 
 @mode_keyed_cache(maxsize=16)
@@ -615,16 +670,17 @@ def _prefetch(state: ShardedState) -> None:
         state.small = host
 
 
-def _fetch_segments(state: ShardedState, needed: np.ndarray) -> list[list[np.ndarray]]:
-    """[shard][image] uint8 streams: each shard's first needed[s, i] words
-    of each image, one device->host copy per shard."""
+def _fetch_segments(devices: list[torch.device], words: list[list[torch.Tensor]],
+                    needed: np.ndarray) -> list[list[np.ndarray]]:
+    """[shard][image] uint8 streams: of words[shard][image] the first
+    needed[s, i] words, one device->host copy per shard."""
     out = []
-    for s, dev in enumerate(state.devices):
+    for s, dev in enumerate(devices):
         with on_device(dev):
-            parts = [w[: int(n)] for w, n in zip(state.words[s], needed[s])]
+            parts = [w[: int(n)] for w, n in zip(words[s], needed[s])]
             host = torch.cat(parts).cpu().numpy()
         offs = np.concatenate([[0], np.cumsum(needed[s])])
-        out.append([host[offs[i]: offs[i + 1]].view(np.uint8) for i in range(state.n_images)])
+        out.append([host[offs[i]: offs[i + 1]].view(np.uint8) for i in range(len(words[s]))])
     return out
 
 
@@ -640,8 +696,11 @@ def _check_bits(state_hists: np.ndarray, tables, packed: int, what: str) -> None
 def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
     """Wait for the small copy, fetch the needed words of every shard and
     image, and bit-merge each image's segments -> [(scan bytes,
-    HuffmanTables)] per image. Then give a program's instance back: the
-    state's device tensors belong to the next start that replays it."""
+    HuffmanTables)] per image, kept on the state for a later finish. Then
+    give a program's instance back: the state's device tensors belong to
+    the next start that replays it."""
+    if state.result is not None:
+        return state.result
     if state.small_ready is not None:
         state.small_ready.synchronize()
     small = state.small.numpy()
@@ -652,7 +711,7 @@ def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
     spec_syms = rest[4 * b: 4 * b + 1024 * b].reshape(b, 4, 256)
     spec_lens = rest[4 * b + 1024 * b:].reshape(b, 4, 256)
     needed = (bits + 31) // 32
-    segments = _fetch_segments(state, needed)
+    segments = _fetch_segments(state.devices, state.words, needed)
     check = state.hists.sum(dim=0).cpu().numpy() if check_bits_enabled() else None
     results = []
     for i in range(b):
@@ -661,49 +720,116 @@ def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
             _check_bits(check[i], tables, int(bits[:, i].sum()), f"sharded one-dispatch image {i}")
         results.append((merge_and_stuff([(segments[s][i], int(bits[s, i])) for s in range(n)]),
                         tables))
+    state.result = results
     if state.release is not None:
         state.release()  # its instance may replay again
     return results
 
 
+def shard_pack(blocks: tuple, shard: int, codes: torch.Tensor, lens: torch.Tensor,
+               n_words: int, fused: bool, luma_per_mcu: int, rows_per_shard: int,
+               valid_mcu_rows: int, mcus_per_row: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's two-dispatch pack with the host tables (codes/lens
+    [4, 256] on its device), its alignment blocks masked: the scan-pack
+    kernel (fused), else the staged pack -> (words int32 [n_words],
+    total_bits int64 [1])."""
+    luma, cb, cr = blocks
+    scan = interleave_scan(luma, cb, cr, int(cb.shape[0]), luma_per_mcu)
+    mask = scan_prefix_mask(int(scan.shape[0]), shard, rows_per_shard, valid_mcu_rows,
+                            mcus_per_row, luma_per_mcu, scan.device)
+    pack = fused_pack_words if fused else staged_pack_words
+    return pack(scan, luma_per_mcu + 2, luma_per_mcu, codes, lens, n_words, valid=mask)
+
+
+@mode_keyed_cache(maxsize=16)
+def _compiled_shard_pack(num_shards: int, nl_s: int, nc_s: int, luma_per_mcu: int,
+                         words_cap: int, rows_per_shard: int, valid_mcu_rows: int,
+                         mcus_per_row: int, use_fused: bool, device: torch.device):
+    """Every shard's two-dispatch pack on one card (shard_pack per shard),
+    from the shards' blocks copied in and the host tables. Keyed as the
+    JAX package's program, plus the device. Inputs: luma [n, nl_s, 64],
+    cb and cr [n, nc_s, 64], device_pack.pack_values' vector of one image
+    and its host staging."""
+    n_values = 2 * 4 * 256 + 1
+    shapes = ((num_shards, nl_s, 64), (num_shards, nc_s, 64), (num_shards, nc_s, 64),
+              (n_values,), (n_values,))
+    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, od.HostStaging(torch.int32))
+
+    def enqueue(inputs, _state):
+        luma, cb, cr, values, _ = inputs
+        codes, lens, _ = unpack_values(values, 1)
+        packs = [shard_pack((luma[s], cb[s], cr[s]), s, codes[0], lens[0], words_cap, use_fused,
+                            luma_per_mcu, rows_per_shard, valid_mcu_rows, mcus_per_row)
+                 for s in range(num_shards)]
+        return [([w for w, _ in packs], [b for _, b in packs])]
+
+    def fill(inputs, args, _maxval):
+        luma, cb, cr, values, staging = inputs
+        blocks, host = args
+        for s, (lz, cbz, crz) in enumerate(blocks):
+            luma[s].copy_(lz)
+            cb[s].copy_(cbz)
+            cr[s].copy_(crz)
+        stage_values(values, staging, host)
+
+    return od._pool("shard_pack", shapes, dtypes, device, enqueue, fill)
+
+
 def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
     """One fetch of every shard's histograms; host tables from their sum
-    and each shard's exact bits from its own; each shard's pack (the
+    and each shard's exact bits from its own; every shard's pack (the
     scan-pack kernel, or with DMMT_NO_FUSED_PACK the staged pack) with the
-    host tables, its alignment blocks masked; fetch and bit-merge."""
+    host tables, its alignment blocks masked; fetch and bit-merge. With
+    every shard on one card the packs are one replay of _compiled_shard_pack;
+    otherwise op by op. The result stays on the state for a later finish,
+    and a program's instance is given back."""
     from ..encoder import HuffmanTables
 
+    if state.result is not None:
+        return state.result[0]
     geom, devices = state.geom, state.devices
     per_shard = state.hists[:, 0].cpu().numpy().astype(np.int64)  # [n, 544]
     tables = HuffmanTables.from_host_histograms(*split_histograms(per_shard.sum(axis=0)))
     flat = tables.flat()
     bits = [exact_scan_bits(split_histograms(h), *flat) for h in per_shard]
-    codes_np, lens_np = (x[0] for x in _flat_tables([flat]))
+    values = pack_values([flat], [0])
     # the scan-pack kernel where the devices run the kernels and
-    # DMMT_NO_FUSED_PACK is not set (the JAX package's _use_fused_pack)
+    # DMMT_NO_FUSED_PACK is not set (the JAX package's _use_fused_pack),
+    # with the worst-case word buffer of the shape; the staged pack with
+    # the JAX package's bucket of the longest shard's words
     fused = kernels_on(devices) and _use_fused_pack()
-    stride = geom.lpm + 2
-    for s, (blocks, dev) in enumerate(zip(state.blocks, devices)):
-        with on_device(dev):
-            scan = scans_of(blocks, 1, geom)[0]
-            codes, lens = upload(codes_np, dev), upload(lens_np, dev)
-            mask = geom.scan_mask(s, dev)
-            if fused:
-                words, packed = fused_pack_words(scan, stride, geom.lpm, codes, lens,
-                                                 geom.n_scan * 64 + 2, valid=mask)
-            else:
-                words, packed = staged_pack_words(scan, stride, geom.lpm, codes, lens,
-                                                  (bits[s] + 31) // 32 + 2, valid=mask)
-        state.words.append([words])
-        state.bits.append(packed)
-    if check_bits_enabled():
-        for s, packed in enumerate(state.bits):
-            if int(packed.sum()) != bits[s]:
-                raise AssertionError(f"shard {s} packed {int(packed.sum())} bits but its "
-                                     f"histograms predict {bits[s]}")
-    needed = np.array([[(b + 31) // 32] for b in bits])
-    segments = _fetch_segments(state, needed)
-    return merge_and_stuff([(segments[s][0], bits[s]) for s in range(len(devices))]), tables
+    words_cap = (geom.n_scan * 64 + 2 if fused
+                 else words_capacity(max((b + 31) // 32 + 2 for b in bits)))
+    key = (geom.rows_per_shard, geom.valid_mcu_rows, geom.pw // geom.preset.mcu_width)
+
+    def read(words: list[torch.Tensor], packed: list[torch.Tensor]) -> tuple[bytes, object]:
+        if check_bits_enabled():
+            for s, p in enumerate(packed):
+                if int(p.sum()) != bits[s]:
+                    raise AssertionError(f"shard {s} packed {int(p.sum())} bits but its "
+                                         f"histograms predict {bits[s]}")
+        needed = np.array([[(b + 31) // 32] for b in bits])
+        segments = _fetch_segments(devices, [[w] for w in words], needed)
+        return merge_and_stuff([(segments[s][0], bits[s]) for s in range(len(devices))]), tables
+
+    card = _program_card(state.blocks[0][0], devices)
+    if card is None:
+        packs = []
+        for s, (blocks, dev) in enumerate(zip(state.blocks, devices)):
+            with on_device(dev):
+                codes, lens, _ = unpack_values(upload(values, dev), 1)
+                packs.append(shard_pack(blocks, s, codes[0], lens[0], words_cap, fused, geom.lpm,
+                                        *key))
+        result = read([w for w, _ in packs], [b for _, b in packs])
+    else:
+        pool = _compiled_shard_pack(geom.num_shards, int(state.blocks[0][0].shape[0]),
+                                    int(state.blocks[0][1].shape[0]), geom.lpm, words_cap, *key,
+                                    fused, card)
+        result = od._run_once(pool, (state.blocks, values), read)
+    state.result = [result]
+    if state.release is not None:
+        state.release()  # its instance may replay again
+    return result
 
 
 def start_sharded_encode(
@@ -713,24 +839,19 @@ def start_sharded_encode(
     shard_devices(device, config.num_shards) without waiting: the
     one-dispatch encode where use_sharded_onedispatch holds (every shard
     packed), otherwise the two-dispatch encode's phase 1 and histograms.
-    With every shard on one card the one-dispatch encode is one replay of
-    the program (_compiled_sharded_onedispatch); across several cards and
-    on the CPU it is enqueued op by op. Finish with finish_sharded_encode."""
+    With every shard on one card the start is one replay of a program
+    (_compiled_sharded_onedispatch, or _compiled_sharded for the
+    two-dispatch encode); across several cards and on the CPU it is
+    enqueued op by op. Finish with finish_sharded_encode."""
     devices = shard_devices(device, config.num_shards)
     h, w = int(pixels.shape[0]), int(pixels.shape[1])
-    one = use_sharded_onedispatch(config, h, w, devices)
-    card = _program_card(pixels, devices) if one else None
-    if card is None:
-        return _start([pixels], maxval, config, devices, one)
-    lq, cq = quantization_table_pair(config.quantization_preset, config.quality)
-    pool = _compiled_sharded_onedispatch(h, w, config.chroma_subsampling, config.dct_variant,
-                                         config.num_shards, *od.program_key(pixels, maxval, lq, cq,
-                                                                             card))
-    return _replay(pool, pixels, maxval)
+    return _sharded_start(pixels, maxval, config, devices,
+                          use_sharded_onedispatch(config, h, w, devices))
 
 
 def finish_sharded_encode(state: ShardedState, config: EncoderConfig) -> tuple[bytes, object]:
-    """(stuffed scan bytes, HuffmanTables) of a start_sharded_encode."""
+    """(stuffed scan bytes, HuffmanTables) of a start_sharded_encode; a
+    state finished again gives its first result."""
     if state.kind == "onedispatch":
         return _finish_onedispatch(state)[0]
     return _finish_twodispatch(state)
@@ -795,7 +916,7 @@ def run_sharded_pipeline(
     drop_alignment_blocks applied) and the summed histograms (numpy), equal
     to the single-device result."""
     devices = shard_devices(device, config.num_shards)
-    state = _start([pixels], maxval, config, devices, False, luma_q, chroma_q)
+    state = _sharded_start(pixels, maxval, config, devices, False, luma_q, chroma_q)
     g = state.geom
     out = [
         torch.from_numpy(drop_alignment_blocks(

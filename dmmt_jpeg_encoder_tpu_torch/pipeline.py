@@ -18,7 +18,13 @@ histograms, left on the device (encoder.HuffmanTables.from_histograms
 fetches the histograms in one copy). The batch form runs phase 1 once over
 the images row-stacked, each pre-padded to its MCU multiple, as the slab
 does (onedispatch.pack_inputs), and counts per image with the grouped
-histogram kernel.
+histogram kernel. As in the JAX package, each is one program on a card:
+one replay of a CUDA graph of its eager enqueue (`device_phase`,
+`device_phase_batch`) from `_compiled_pipeline` / `_compiled_pipeline_batch`
+(maxsize 32 / 16, keyed as the JAX package's plus onedispatch.program_key),
+whose instance the result holds until it is collected (its blocks are the
+graph's outputs until then). The CPU runs the same enqueue eagerly
+(`program_card` decides).
 
 `zigzag_blocks` turns RGB into DPCM'd zigzag blocks on every path (the
 counterpart of the JAX package's encode_blocks_from_planes and
@@ -41,8 +47,9 @@ DMMT_P1_PREC.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
+from typing import Callable
 
 import numpy as np
 import torch
@@ -61,6 +68,7 @@ from .ops.geometry import (
 )
 from .ops.quantize import round_half_away_from_zero
 from .tables import ZIGZAG
+from .utils.capability import mode_keyed_cache
 from .utils.device import as_device, device_constant, narrow_pixels
 
 
@@ -216,6 +224,40 @@ class DeviceEncodeResult:
     luma_ac_hist: torch.Tensor | np.ndarray    # int32 [256]
     chroma_dc_hist: torch.Tensor | np.ndarray  # int32 [16]
     chroma_ac_hist: torch.Tensor | np.ndarray  # int32 [256]
+    # gives a replay's program instance back when the result is collected
+    # (a weakref.finalize): its blocks are the graph's outputs until then
+    release: Callable | None = field(default=None, repr=False, compare=False)
+
+
+def program_card(pixels, device) -> torch.device | None:
+    """The card on which a two-dispatch half (run_device_pipeline,
+    run_device_pipeline_batch, bitstream/device_pack.device_pack_scan and
+    device_pack_scan_batch) replays its program: where `pixels` (a tensor)
+    lies or `device` names (a host array), when that is a card; None for
+    the eager enqueue (the CPU)."""
+    from . import onedispatch as od
+
+    dev = od._target(pixels, device)
+    return dev if dev.type == "cuda" else None
+
+
+def device_phase(
+    rgb: torch.Tensor,
+    maxval: int,
+    config: EncoderConfig,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
+    hist_state: torch.Tensor | None = None,
+) -> DeviceEncodeResult:
+    """Phase 1, DPCM and the four histograms of RGB [H, W, 3] on the
+    device, enqueued op by op: what _compiled_pipeline captures (with its
+    own histogram-kernel `hist_state`) and what the CPU runs."""
+    luma, cb, cr = zigzag_blocks(rgb, 1, maxval, luma_q, chroma_q, config.chroma_subsampling,
+                                 config.dct_variant)
+    l_dc, l_ac = symbol_histograms(luma, state=hist_state)
+    # the chroma tables are shared by Cb and Cr: one count over both
+    c_dc, c_ac = symbol_histograms((cb, cr), state=hist_state)
+    return DeviceEncodeResult(luma, cb, cr, l_dc, l_ac, c_dc, c_ac)
 
 
 def run_device_pipeline(
@@ -227,14 +269,36 @@ def run_device_pipeline(
     device: torch.device | str = "cuda",
 ) -> DeviceEncodeResult:
     """Enqueue phase 1, DPCM and the histograms of RGB [H, W, 3] samples: a
-    host array is uploaded to `device`, a tensor is encoded where it lies."""
-    rgb = as_device(pixels, maxval, device)
-    luma, cb, cr = zigzag_blocks(rgb, 1, maxval, luma_q, chroma_q, config.chroma_subsampling,
-                                 config.dct_variant)
-    l_dc, l_ac = symbol_histograms(luma)
-    # the chroma tables are shared by Cb and Cr: one count over both
-    c_dc, c_ac = symbol_histograms((cb, cr))
-    return DeviceEncodeResult(luma, cb, cr, l_dc, l_ac, c_dc, c_ac)
+    host array is encoded on `device`, a tensor where it lies. On a card:
+    one replay of the program (_compiled_pipeline), whose instance the
+    result holds until it is collected; on the CPU: device_phase."""
+    card = program_card(pixels, device)
+    if card is None:
+        return device_phase(as_device(pixels, maxval, device), maxval, config, luma_q, chroma_q)
+    from . import onedispatch as od
+
+    pool = _compiled_pipeline(int(pixels.shape[0]), int(pixels.shape[1]),
+                              config.chroma_subsampling, config.dct_variant,
+                              *od.program_key(pixels, maxval, luma_q, chroma_q, card))
+    return od._start(pool, pixels, maxval)[0]
+
+
+@mode_keyed_cache(maxsize=32)
+def _compiled_pipeline(height: int, width: int, preset: ChromaSubsamplingPreset,
+                       variant: DCTVariant, device: torch.device, dtype: torch.dtype,
+                       maxval: int, luma_key: tuple, chroma_key: tuple):
+    """The first half of the two-dispatch encode of one [H, W, 3] image:
+    device_phase. Keyed as the JAX package's program, plus
+    onedispatch.program_key."""
+    from . import onedispatch as od
+
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
+    lq, cq = od._table(luma_key), od._table(chroma_key)
+
+    def enqueue(x, state):
+        return [device_phase(x, maxval, config, lq, cq, state)]
+
+    return od._pool("pipeline", (height, width, 3), dtype, device, enqueue)
 
 
 def image_layout(shape) -> tuple[bool, int, int]:
@@ -299,6 +363,28 @@ def row_stack(
     return stacked_rows(as_device(stack, maxval, device), planar)
 
 
+def device_phase_batch(
+    rgb: torch.Tensor,
+    n_images: int,
+    maxval: int,
+    config: EncoderConfig,
+    luma_q: np.ndarray,
+    chroma_q: np.ndarray,
+    hist_state: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
+    """The batched device phase of n_images row-stacked, MCU-padded images
+    ([B * PH, PW, 3] on the device), enqueued op by op: phase 1 once, DPCM
+    per image, grouped histograms -> [luma [B, NL, 64], cb [B, NC, 64], cr
+    [B, NC, 64], luma DC [B, 16], luma AC [B, 256], chroma DC [B, 16],
+    chroma AC [B, 256]]. What _compiled_pipeline_batch captures and what
+    the CPU runs."""
+    luma, cb, cr = (x.reshape(n_images, -1, 64) for x in zigzag_blocks(
+        rgb, n_images, maxval, luma_q, chroma_q, config.chroma_subsampling, config.dct_variant))
+    l_dc, l_ac = batched_symbol_histograms(luma, hist_state)
+    c_dc, c_ac = batched_symbol_histograms(torch.cat([cb, cr], dim=1), hist_state)
+    return [luma, cb, cr, l_dc, l_ac, c_dc, c_ac]
+
+
 def run_device_pipeline_batch(
     pixels_stack: np.ndarray | torch.Tensor,
     maxval: int,
@@ -307,14 +393,45 @@ def run_device_pipeline_batch(
     chroma_q: np.ndarray,
     device: torch.device | str = "cuda",
 ) -> tuple[torch.Tensor, ...]:
-    """[B, H, W, 3] same-geometry samples (row_stack's rules) -> (luma
+    """[B, H, W, 3] (or channel-planar [B, 3, H, W]) same-geometry samples
+    (mcu_padded_stack's rules: a tensor must be MCU-padded) -> (luma
     [B, NL, 64], cb [B, NC, 64], cr [B, NC, 64], luma DC [B, 16], luma AC
     [B, 256], chroma DC [B, 16], chroma AC [B, 256]) on the device, each
-    image's as run_device_pipeline gives them."""
+    image's as run_device_pipeline gives them. On a card: one replay of
+    the program (_compiled_pipeline_batch), whose instance is held until
+    all seven tensors are collected; on the CPU: device_phase_batch."""
     b = int(pixels_stack.shape[0])
-    rgb = row_stack(pixels_stack, maxval, config.chroma_subsampling, device)
-    luma, cb, cr = (x.reshape(b, -1, 64) for x in zigzag_blocks(
-        rgb, b, maxval, luma_q, chroma_q, config.chroma_subsampling, config.dct_variant))
-    l_dc, l_ac = batched_symbol_histograms(luma)
-    c_dc, c_ac = batched_symbol_histograms(torch.cat([cb, cr], dim=1))
-    return luma, cb, cr, l_dc, l_ac, c_dc, c_ac
+    planar, height, width = image_layout(pixels_stack.shape[1:])
+    stack = mcu_padded_stack(pixels_stack, maxval, config.chroma_subsampling)
+    card = program_card(stack, device)
+    if card is None:
+        rgb = stacked_rows(as_device(stack, maxval, device), planar)
+        return tuple(device_phase_batch(rgb, b, maxval, config, luma_q, chroma_q))
+    from . import onedispatch as od
+
+    pool = _compiled_pipeline_batch(b, height, width, config.chroma_subsampling,
+                                    config.dct_variant, planar,
+                                    *od.program_key(stack, maxval, luma_q, chroma_q, card))
+    return tuple(od._start(pool, stack, maxval))
+
+
+@mode_keyed_cache(maxsize=16)
+def _compiled_pipeline_batch(n_images: int, height: int, width: int,
+                             preset: ChromaSubsamplingPreset, variant: DCTVariant, planar: bool,
+                             device: torch.device, dtype: torch.dtype, maxval: int,
+                             luma_key: tuple, chroma_key: tuple):
+    """The first half of a fused_batch chunk over an MCU-padded stack: the
+    row stack (with the planar interleave), device_phase_batch. Keyed as
+    the JAX package's program, plus the group's size and layout (the
+    input's shape) and onedispatch.program_key."""
+    from . import onedispatch as od
+
+    config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
+    lq, cq = od._table(luma_key), od._table(chroma_key)
+    ph, pw = padded_size(height, width, preset)
+
+    def enqueue(x, state):
+        return device_phase_batch(stacked_rows(x, planar), n_images, maxval, config, lq, cq, state)
+
+    shape = (n_images, 3, ph, pw) if planar else (n_images, ph, pw, 3)
+    return od._pool("pipeline_batch", shape, dtype, device, enqueue)

@@ -23,10 +23,10 @@ arm) with a host clock around each step of encode_batch: staging and
 upload issue, enqueue of the device work, the small-copy enqueue, the wait
 for it, the table-spec decode, the word fetch, byte stuffing and the
 container; it prints ms per image for each. For the fused batch the steps
-are staging and upload issue, the enqueue of phase 1 and the histograms,
-the host tables (package-merge), the enqueue of the emissions, the rest of
-the pack (emission-pack enqueue and the word fetch), byte stuffing and the
-container; "other" holds the wait for the histogram fetch.
+are staging and the upload's enqueue, the replay of phase 1 and the histograms
+(one program), the host tables (package-merge), the pack (one program's
+replay and the word fetch), byte stuffing and the container; "other"
+holds the wait for the histogram fetch.
 
 `single OTHER_CHECKOUT` compares the single-image encode_array of this
 checkout with another one (for example the parent commit, unpacked with
@@ -274,16 +274,15 @@ def stages() -> None:
     }, {"wait for small copy": ("spec decode", "word fetch", "stuffing")})
     _stage_times([
         (encoder, "_upload", "stage + upload issue"),
-        (encoder, "run_device_pipeline_batch", "enqueue phase 1 + histograms"),
+        (encoder, "run_device_pipeline_batch", "phase 1 + histograms replay"),
         (encoder, "code_lengths_from_histogram", "host tables"),
-        (encoder, "device_pack_scan_batch", "pack enqueue + word fetch"),
-        (device_pack, "batch_emissions", "enqueue emissions"),
+        (encoder, "device_pack_scan_batch", "pack replay + word fetch"),
         (device_pack, "finalize_scan_bytes", "stuffing"),
         (encoder, "_jpeg", "container"),
     ], {
         "fused_1080p_x16": (hd, {}, 16),
         "fused_2160p_x4": (uhd, {}, 4),
-    }, {"pack enqueue + word fetch": ("enqueue emissions", "stuffing")})
+    }, {"pack replay + word fetch": ("stuffing",)})
 
 
 _SINGLE = """

@@ -426,7 +426,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     """{input name: (kind, [call arguments, ...])}: each kernel's inputs as
     the encodes pass them (with the encode's output for dct and lookup)."""
     import dmmt_jpeg_encoder_tpu_torch as port
-    from .. import onedispatch
+    from .. import onedispatch, pipeline
     from ..bitstream import device_pack, emission_pack
     from ..ops import block_hist, fused, fused_arai, fused_phase1, histogram, mxu_dct, pallas_dct
     from ..pipeline import row_stack
@@ -512,6 +512,12 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
             states = onedispatch._enqueue(rgb, 1, 255, config, lq, cq, False)
         for state in states:
             onedispatch.finish_one_dispatch(state)
+
+    def eager_two_dispatch():
+        """The two-dispatch halves op by op (pipeline.program_card naming no
+        card), so that every wrapper call passes the grabs."""
+        return _patched(pipeline, "program_card", lambda real: lambda pixels, device: None)
+
     inputs = {}
     if "dct" in kinds:
         with _patched(fused, "fused_dct_quantize_zigzag", grab_dct):
@@ -521,7 +527,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     if "lookup" in kinds:
         os.environ["DMMT_NO_FUSED_PACK"] = "1"
         try:
-            with _patched(device_pack, "table_lookup_grouped", grab_lookup):
+            with _patched(device_pack, "table_lookup_grouped", grab_lookup), eager_two_dispatch():
                 port.encode_array(px, 255, dataclasses.replace(cfg, one_dispatch="off"), device=dev)
                 inputs["table_lookup 4k_p420 staged pack (DC, AC)"] = ("lookup", calls[:])
                 calls.clear()
@@ -579,7 +585,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
         inputs["plane_dct_mm 4k_p420 DMMT_P1=mxu (Cb, Cr stacked; luma)"] = ("plane_dct_mm", calls[:])
         calls.clear()
     if "pack_emissions" in kinds:
-        with _patched(emission_pack, "pack_emission_words", grab_emissions):
+        with _patched(emission_pack, "pack_emission_words", grab_emissions), eager_two_dispatch():
             os.environ["DMMT_NO_FUSED_PACK"] = "1"
             try:
                 port.encode_array(px, 255, dataclasses.replace(cfg, one_dispatch="off"), device=dev)
@@ -591,7 +597,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
             inputs[f"pack_emissions batch_1080p_p420 fused_batch={fb['n']}"] = ("pack_emissions", calls[:])
             calls.clear()
     if "histogram" in kinds:
-        with _patched(histogram, "histogram_grouped", grab_weighted):
+        with _patched(histogram, "histogram_grouped", grab_weighted), eager_two_dispatch():
             os.environ["DMMT_HIST"] = "pallas"
             try:
                 port.encode_array(px, 255, dataclasses.replace(cfg, one_dispatch="off"), device=dev)

@@ -14,13 +14,14 @@ XLA paths. Here `kernels_capable(device)` answers per device:
   launch or check raises: the port never hides the card behind a fallback.
 
 `trace_mode_key()` and `mode_keyed_cache(maxsize)` are the counterparts of
-the JAX package's: every cache of captured one-dispatch programs
-(onedispatch.py's CUDA graphs) keys on the environment modes baked into
-a capture, so that a mode toggled after the first capture at a geometry
-takes effect. The key holds every knob that the one-dispatch enqueue
-reads (DMMT_P1, DMMT_HIST, DMMT_P1_PREC, DMMT_SLAB_ONEPACK), and
-DMMT_NO_FUSED_PACK, which the JAX key holds and which neither package's
-one-dispatch program reads. The JAX key's other entries have no
+the JAX package's: every cache of captured programs (onedispatch.py's
+CUDA graphs: the one-dispatch starts and the two-dispatch halves) keys on
+the environment modes baked into a capture, so that a mode toggled after
+the first capture at a geometry takes effect. The key holds every knob
+that those enqueues read (DMMT_P1, DMMT_HIST, DMMT_P1_PREC,
+DMMT_SLAB_ONEPACK, and DMMT_NO_FUSED_PACK, which picks the two-dispatch
+packs' route and which neither package's one-dispatch program reads).
+The JAX key's other entries have no
 counterpart: DMMT_FUSED1_TILEW (the TPU kernel's tile width; K10's tiling
 is fixed), DMMT_PALLAS_INTERPRET and pallas_capable() (a graph is
 captured only on a card, whose kernels always run; the CPU runs the plain
@@ -48,8 +49,8 @@ _CAPABLE: set[int] = set()
 
 def trace_mode_key() -> tuple:
     """Everything from the environment that is baked into a captured
-    one-dispatch program (the module docstring lists it). Any cache that
-    holds such a program keys on this (mode_keyed_cache)."""
+    program (the module docstring lists it). Any cache that holds such a
+    program keys on this (mode_keyed_cache)."""
     return (
         os.environ.get("DMMT_P1", "plane"),
         os.environ.get("DMMT_HIST", "fused"),

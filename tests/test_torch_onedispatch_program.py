@@ -21,6 +21,7 @@ from dmmt_jpeg_encoder_tpu import onedispatch as jod
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
 from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset, DCTVariant, config_from_jax
+from dmmt_jpeg_encoder_tpu_torch.kernels import build
 from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
 from dmmt_jpeg_encoder_tpu_torch.utils import capability
 from torch_port_fixtures import FIXTURES, fixture_pixels
@@ -46,21 +47,23 @@ def _clean(monkeypatch):
 
 
 class FakeProgram:
-    """A captured instance without the graph: `run` copies the samples into
-    the static input (with the program's `fill`) and runs the eager
-    enqueue over it on the CPU."""
+    """A captured instance without the graph: `run` copies the call's data
+    into the static input (or inputs: onedispatch.static_input, on the
+    CPU) with the program's `fill`, counts one replay of its kind, and runs
+    the eager enqueue over it on the CPU."""
 
     count = 0
     bytes = 0
 
     def __init__(self, kind, shape, dtype, device, enqueue, fill=tod.copy_in):
         self.kind, self.enqueue, self.fill = kind, enqueue, fill
-        self.input = torch.zeros(shape, dtype=dtype)
+        self.input = tod.static_input(shape, dtype, torch.device("cpu"))
         FakeProgram.count += 1
         tod._PROGRAMS.add(self)
 
     def run(self, pixels, maxval):
         self.fill(self.input, pixels, maxval)
+        build.REPLAYS[self.kind] += 1
         return self.enqueue(self.input, None)
 
 
