@@ -30,6 +30,12 @@ plain versions, for the tests. A sharded encode takes a list of devices,
 one per shard, which may repeat a device (parallel.sharding.shard_devices).
 Every DCT variant and DMMT_P1 phase-1 route runs (pipeline.zigzag_blocks),
 the mxu and fused1 routes at either DMMT_P1_PREC (ops/mxu_dct).
+
+Under torch.profiler the host steps here and in onedispatch.py show as
+`dmmt.` ranges (utils/profiling.span): the staging ring's wait, fill and
+enqueue, the program's lookup, lease, fill and replay, the finish's
+bit-count wait, spec decode, word fetch, stuffing and release, and the
+container.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from .onedispatch import (
 from .pipeline import DeviceEncodeResult, run_device_pipeline, run_device_pipeline_batch
 from .tables import quantization_table_pair
 from .utils.device import narrow_pixels
+from .utils.profiling import span
 
 # Default slab depth, from the H100 sweep in PERF.md (depth x rows, P420,
 # 3840 wide): per-image time falls with depth at every height up to 2160
@@ -165,19 +172,20 @@ def pack_scan(
 
 
 def _jpeg(shape: tuple, config: EncoderConfig, luma_q, chroma_q, scan: bytes, tables) -> bytes:
-    return assemble_jpeg(
-        width=int(shape[1]),
-        height=int(shape[0]),
-        bits_per_channel=config.bits_per_channel,
-        preset=config.chroma_subsampling,
-        luma_quant=luma_q,
-        chroma_quant=chroma_q,
-        luma_dc=tables.luma_dc,
-        luma_ac=tables.luma_ac,
-        chroma_dc=tables.chroma_dc,
-        chroma_ac=tables.chroma_ac,
-        scan_bytes=scan,
-    )
+    with span("dmmt.container"):
+        return assemble_jpeg(
+            width=int(shape[1]),
+            height=int(shape[0]),
+            bits_per_channel=config.bits_per_channel,
+            preset=config.chroma_subsampling,
+            luma_quant=luma_q,
+            chroma_quant=chroma_q,
+            luma_dc=tables.luma_dc,
+            luma_ac=tables.luma_ac,
+            chroma_dc=tables.chroma_dc,
+            chroma_ac=tables.chroma_ac,
+            scan_bytes=scan,
+        )
 
 
 def encode_array(
@@ -290,13 +298,15 @@ def _upload(part: list[np.ndarray], maxval: int, padded: tuple[int, int],
     slots.append(slot)
     buf, last = slot
     if last is not None:
-        last.synchronize()
-    for j, px in enumerate(part):
-        buf[j, :h, :w].copy_(torch.from_numpy(narrow_pixels(px, maxval)))
+        with span("dmmt.stage_wait"):
+            last.synchronize()
+    with span("dmmt.stage_fill"):
+        for j, px in enumerate(part):
+            buf[j, :h, :w].copy_(torch.from_numpy(narrow_pixels(px, maxval)))
     if not cuda:
         return buf.clone(), None
     upload, _ = side_streams(device)
-    with torch.cuda.stream(upload):
+    with span("dmmt.stage_enqueue"), torch.cuda.stream(upload):
         dev = torch.empty(buf.shape, dtype=buf.dtype, device=device)
         dev.copy_(buf, non_blocking=True)
         slot[1] = torch.cuda.Event()

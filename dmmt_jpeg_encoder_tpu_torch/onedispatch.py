@@ -110,6 +110,7 @@ from .pipeline import (
 )
 from .utils.capability import mode_keyed_cache
 from .utils.device import as_device, narrow_pixels, on_device
+from .utils.profiling import span
 
 # Worst-case symbol-total bound for exact device table tie-breaking.
 MAX_DEVICE_TABLE_SYMBOLS = 1 << 28
@@ -249,10 +250,14 @@ def start_one_dispatch(
     _require_supported(height, width, config.chroma_subsampling)
     dev = _target(pixels, device)
     if dev.type == "cuda":
-        pool = _compiled_onedispatch(height, width, config.chroma_subsampling, config.dct_variant,
-                                     planar, *program_key(pixels, maxval, luma_q, chroma_q, dev))
+        with span("dmmt.lookup"):
+            pool = _compiled_onedispatch(height, width, config.chroma_subsampling,
+                                         config.dct_variant, planar,
+                                         *program_key(pixels, maxval, luma_q, chroma_q, dev))
         return _start(pool, pixels, maxval)[0]
-    rgb = interleaved(as_device(pixels, maxval, dev), planar)
+    with span("dmmt.fill"):
+        pixels = as_device(pixels, maxval, dev)
+    rgb = interleaved(pixels, planar)
     return _enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
 
 
@@ -286,10 +291,13 @@ def start_one_dispatch_slab(
     stack = mcu_padded_stack(pixels_stack, maxval, preset)
     dev = _target(stack, device)
     if dev.type == "cuda":
-        pool = _compiled_onedispatch_slab(b, height, width, preset, config.dct_variant, planar,
-                                          *program_key(stack, maxval, luma_q, chroma_q, dev))
+        with span("dmmt.lookup"):
+            pool = _compiled_onedispatch_slab(b, height, width, preset, config.dct_variant, planar,
+                                              *program_key(stack, maxval, luma_q, chroma_q, dev))
         return _start(pool, stack, maxval)
-    rgb = stacked_rows(as_device(stack, maxval, dev), planar)
+    with span("dmmt.fill"):
+        stack = as_device(stack, maxval, dev)
+    rgb = stacked_rows(stack, planar)
     return _enqueue(rgb, b, maxval, config, luma_q, chroma_q, onepack=slab_onepack_enabled())
 
 
@@ -318,9 +326,11 @@ def start_one_dispatch_multi(
     _require_supported(height, width, config.chroma_subsampling)
     dev = _target(pixels_stack, device)
     if dev.type == "cuda":
-        pool = _compiled_onedispatch_multi(b, height, width, config.chroma_subsampling,
-                                           config.dct_variant, planar,
-                                           *program_key(pixels_stack, maxval, luma_q, chroma_q, dev))
+        with span("dmmt.lookup"):
+            pool = _compiled_onedispatch_multi(b, height, width, config.chroma_subsampling,
+                                               config.dct_variant, planar,
+                                               *program_key(pixels_stack, maxval, luma_q, chroma_q,
+                                                            dev))
         return _start(pool, pixels_stack, maxval)
     stack = interleaved(as_device(pixels_stack, maxval, dev), planar)
     return [_enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
@@ -459,7 +469,7 @@ class _Program:
                  enqueue: Callable[[torch.Tensor, torch.Tensor | None], list],
                  fill: Callable[[torch.Tensor, object, int], None] = copy_in):
         self.kind, self.device, self.stream, self.fill = kind, device, None, fill
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), span("dmmt.capture"):
             if device.index not in _CAPTURE_STREAMS:
                 _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
             capture = _CAPTURE_STREAMS[device.index]
@@ -494,8 +504,10 @@ class _Program:
             stream = torch.cuda.current_stream(self.device)
             if self.stream is not None and self.stream != stream:
                 stream.wait_stream(self.stream)
-            self.fill(self.input, pixels, maxval)
-            self.graph.replay()
+            with span("dmmt.fill"):
+                self.fill(self.input, pixels, maxval)
+            with span("dmmt.replay"):
+                self.graph.replay()
             self.stream = stream
         for k, n in self.launches.items():
             build.LAUNCHES[k] += n
@@ -514,10 +526,11 @@ def _make_room() -> None:
     leased ones alone do."""
     if graph_bytes() < GRAPH_MAX_BYTES:
         return
-    with _LOCK:
-        for pool in list(_POOLS):
-            pool.idle.clear()
-    gc.collect()
+    with span("dmmt.evict"):
+        with _LOCK:
+            for pool in list(_POOLS):
+                pool.idle.clear()
+        gc.collect()
     if graph_bytes() >= GRAPH_MAX_BYTES:
         raise RuntimeError(
             f"captured programs in use hold {graph_bytes()} bytes of graph memory, at least "
@@ -534,11 +547,12 @@ class _Pool:
         _POOLS.add(self)
 
     def lease(self) -> _Program:
-        with _LOCK:
-            if self.idle:
-                return self.idle.pop()
-        _make_room()
-        return self.make()
+        with span("dmmt.lease"):
+            with _LOCK:
+                if self.idle:
+                    return self.idle.pop()
+            _make_room()
+            return self.make()
 
     def give_back(self, program: _Program) -> None:
         with _LOCK:
@@ -670,38 +684,40 @@ def prefetch_one_dispatch(state: OneDispatchState, config: EncoderConfig | None 
     package's speculative word slice, which the port does not fetch)."""
     if state.small is not None:
         return
-    small = torch.cat([
-        state.total_bits.reshape(1).to(torch.int64),
-        state.spec_ns.to(torch.int64),
-        state.spec_syms.reshape(-1).to(torch.int64),
-        state.spec_lens.reshape(-1).to(torch.int64),
-    ])
-    if small.device.type != "cuda":
-        state.small = small
-        return
-    host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
-    host.copy_(small, non_blocking=True)
-    state.small_ready = torch.cuda.Event()
-    state.small_ready.record()
-    state.small = host
+    with span("dmmt.prefetch"):
+        small = torch.cat([
+            state.total_bits.reshape(1).to(torch.int64),
+            state.spec_ns.to(torch.int64),
+            state.spec_syms.reshape(-1).to(torch.int64),
+            state.spec_lens.reshape(-1).to(torch.int64),
+        ])
+        if small.device.type != "cuda":
+            state.small = small
+            return
+        host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
+        host.copy_(small, non_blocking=True)
+        state.small_ready = torch.cuda.Event()
+        state.small_ready.record()
+        state.small = host
 
 
 def _fetch_words(state: OneDispatchState, n_words: int) -> np.ndarray:
     """The first n_words stream words on the host. On a card the copy runs
     on the fetch stream, ordered after the image's small copy only."""
-    words = state.words[:n_words]
-    if words.device.type != "cuda":
-        return words.numpy()
-    _, fetch = side_streams(words.device)
-    fetch.wait_event(state.small_ready)
-    host = torch.empty(n_words, dtype=words.dtype, pin_memory=True)
-    with torch.cuda.stream(fetch):
-        words.record_stream(fetch)  # the allocator keeps the buffer until the copy ends
-        host.copy_(words, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(fetch)
-    done.synchronize()
-    return host.numpy()
+    with span("dmmt.word_fetch"):
+        words = state.words[:n_words]
+        if words.device.type != "cuda":
+            return words.numpy()
+        _, fetch = side_streams(words.device)
+        fetch.wait_event(state.small_ready)
+        host = torch.empty(n_words, dtype=words.dtype, pin_memory=True)
+        with torch.cuda.stream(fetch):
+            words.record_stream(fetch)  # the allocator keeps the buffer until the copy ends
+            host.copy_(words, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(fetch)
+        done.synchronize()
+        return host.numpy()
 
 
 def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = None):
@@ -718,14 +734,16 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
     if state.result is not None:
         return state.result
     prefetch_one_dispatch(state)
-    if state.small_ready is not None:
-        state.small_ready.synchronize()
-    small = state.small.numpy()
+    with span("dmmt.bits_wait"):
+        if state.small_ready is not None:
+            state.small_ready.synchronize()
+        small = state.small.numpy()
     nbits = int(small[0])
     spec_ns = small[1:5]
     spec_syms = small[5 : 5 + 1024].reshape(4, 256)
     spec_lens = small[5 + 1024 :].reshape(4, 256)
-    tables = tables_from_spec(spec_syms, spec_lens, spec_ns)
+    with span("dmmt.spec_decode"):
+        tables = tables_from_spec(spec_syms, spec_lens, spec_ns)
     if check_bits_enabled():
         predicted = exact_scan_bits(
             tuple(h.cpu().numpy() for h in state.hists),
@@ -739,7 +757,11 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
                 f"one-dispatch packed {nbits} bits but histograms x device "
                 f"tables predict {predicted}"
             )
-    state.result = finalize_scan_bytes(_fetch_words(state, (nbits + 31) // 32), nbits), tables
-    if state.release is not None:
-        state.release()  # its instance may replay again
+    words = _fetch_words(state, (nbits + 31) // 32)
+    with span("dmmt.stuff"):
+        state.result = finalize_scan_bytes(words, nbits), tables
+    with span("dmmt.release"):
+        del words  # on a card its pinned buffer goes back to the host allocator here
+        if state.release is not None:
+            state.release()  # its instance may replay again
     return state.result

@@ -1,15 +1,20 @@
-"""Profiling helpers: a device trace around a block, and host stage timers.
+"""Profiling helpers: a device trace around a block, the program's host
+spans, and host stage timers.
 
 Counterpart of dmmt_jpeg_encoder_tpu.utils.profiling, with the trace taken
 by torch.profiler (CPU activity, and CUDA activity where a card is present)
-in place of jax.profiler. Debugging aids only: the encode path calls
-neither.
+in place of jax.profiler. `span(name)` marks a stretch of the encode path's
+host work (the `dmmt.` spans: upload, lease, replay, the finish's wait,
+spec decode, word fetch, stuffing, the container) as a torch.profiler range,
+so it lies on the device trace's clock; with no profiler recording it is
+one flag read and a shared no-op context. `trace` and `stage_timer` are
+debugging aids the encode path does not call.
 
 Usage:
     from dmmt_jpeg_encoder_tpu_torch.utils.profiling import trace, stage_timer
 
-    with trace("traces/encode"):           # open trace.json in Perfetto
-        encode_array(pixels)
+    with trace("traces/encode"):           # open trace.json in Perfetto:
+        encode_array(pixels)               # the kernels and the dmmt. spans
 
     with stage_timer() as t:
         result = run_device_pipeline(...)
@@ -25,6 +30,23 @@ import time
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# what span gives while no profiler records: reusable, and safe on any thread
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named `name` while torch.profiler records (in the
+    chrome trace a `cpu_op` event of the calling thread), else the shared
+    no-op context; the check is one flag read. The range is torch's C++
+    RecordFunction context (`_RecordFunctionFast`), not `record_function`,
+    which dispatches a profiler op on entry and on exit, even when nothing
+    records: several times the cost a span, and as much time left outside
+    the spans between two neighbours."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
