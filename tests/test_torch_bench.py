@@ -247,7 +247,7 @@ def test_cpu_run_end_to_end():
     proc = subprocess.run(
         [sys.executable, "-m", "dmmt_jpeg_encoder_tpu_torch.bench", "--device", "cpu",
          "--width", "48", "--height", "32", "--rounds", "1", "--batch", "2", "--no-8k"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     finals = [x for x in _json_lines(proc.stdout) if x.get("final")]
     assert [x["metric"] for x in finals] == SMALL_RUN_METRICS

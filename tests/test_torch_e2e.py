@@ -8,6 +8,7 @@ plain versions (its two-dispatch paths: test_torch_two_dispatch.py).
 Bytes must be identical."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -74,6 +75,23 @@ def test_encode_array_bytes_match_jax(preset, shape, maxval, quality, qtable):
     want = dj.encode_array(px, maxval, cfg)
     got = dt.encode_array(px, maxval, config_from_jax(cfg), device="cpu")
     assert got == want
+
+
+@pytest.fixture
+def torch_pool_of_every_core():
+    """torch's intra-op pool on every core, as outside the parallel test
+    run, whose workers each get a share (torch_port_fixtures.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("preset,shape,maxval,quality,qtable", [BYTE_CASES[3], BYTE_CASES[8]])
+def test_encode_array_bytes_match_jax_on_every_core(torch_pool_of_every_core, preset, shape,
+                                                    maxval, quality, qtable):
+    assert torch.get_num_threads() == len(os.sched_getaffinity(0))
+    test_encode_array_bytes_match_jax(preset, shape, maxval, quality, qtable)
 
 
 def test_encode_ppm_bytes_and_file_api(tmp_path):

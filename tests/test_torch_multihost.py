@@ -36,7 +36,7 @@ import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu_torch.parallel import multihost as mh
 
 rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-mh.initialize_distributed(f"tcp://localhost:{port}", world, rank, backend="gloo")
+mh.initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
 assert mh.process_index() == rank and mh.process_count() == world
 assert mh.is_coordinator() == (rank == 0)
 for k, (h, w, n) in enumerate(CASES):
@@ -63,14 +63,17 @@ def _pixels(k, h, w):
 
 def _free_port() -> int:
     with socket.socket() as s:
-        s.bind(("localhost", 0))
+        s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
 def test_two_process_distributed_encode_matches_jax(tmp_path):
     code = f"CASES = {CASES!r}\nPRESETS = {PRESETS!r}\n" + WORKER
     port = _free_port()
+    # the loopback address and interface, so that neither c10d's store nor
+    # gloo's device looks up a host name
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
     procs = [subprocess.Popen([sys.executable, "-c", code, str(rank), "2", str(port),
                                str(tmp_path / "jpeg"), str(REPO)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -80,6 +83,7 @@ def test_two_process_distributed_encode_matches_jax(tmp_path):
     finally:
         for p in procs:
             p.kill()
+            p.wait()
     for p, (_, err) in zip(procs, results):
         assert p.returncode == 0, err
     for k, (h, w, n) in enumerate(CASES):

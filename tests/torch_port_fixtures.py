@@ -30,6 +30,17 @@ import numpy as np
 
 GOLDENS_PATH = Path(__file__).with_name("torch_port_goldens.json")
 
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    # Each pytest-xdist worker's torch intra-op pool gets its share of the
+    # cores it may run on: six workers with a pool of every core each
+    # oversubscribe the machine several times over. Every worker imports
+    # this module while it collects. XLA:CPU's pool is left as it is:
+    # single-threaded Eigen sums the reference's dots in another order.
+    import torch
+
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
 # name -> geometry, sample range, preset and quality of the encode
 FIXTURES: dict[str, dict] = {
     "4k_p420": dict(height=2160, width=3840, maxval=255, preset="P420", quality=None, seed=0),
