@@ -53,6 +53,7 @@ from ..entropy.categorize import magnitude_category, running_max, running_sum
 from ..ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
 from ..utils.capability import mode_keyed_cache
 from ..utils.device import upload
+from ..utils.profiling import span
 
 # Static per-block worst case: DC 31 bits, 63 AC emissions of <=31 bits,
 # 3 ZRL of <=16 bits, EOB <=16 bits -> round up to 64 words.
@@ -539,8 +540,9 @@ def _compiled_pack_batch(n_images: int, n_luma: int, n_chroma: int, luma_per_mcu
 
 def _checked_bytes(known_bits: int):
     """The read of one image's pack: with DMMT_CHECK_BITS set, the packed
-    bit count against `known_bits`; then one fetch of the needed words and
-    the host tail."""
+    bit count against `known_bits`; then the wait for the pack
+    (dmmt.pack_wait: the stream the fetch's copy would wait on), one fetch
+    of the needed words (dmmt.word_fetch) and the host tail (dmmt.stuff)."""
 
     def read(words: torch.Tensor, total_bits: torch.Tensor) -> bytes:
         if check_bits_enabled() and int(total_bits.sum()) != known_bits:
@@ -548,7 +550,13 @@ def _checked_bytes(known_bits: int):
                 f"device packed {int(total_bits.sum())} scan bits but the histograms "
                 f"predict {known_bits}"
             )
-        return finalize_scan_bytes(words[: (known_bits + 31) // 32].cpu().numpy(), known_bits)
+        with span("dmmt.pack_wait"):
+            if words.device.type == "cuda":
+                torch.cuda.current_stream(words.device).synchronize()
+        with span("dmmt.word_fetch"):
+            host = words[: (known_bits + 31) // 32].cpu().numpy()
+        with span("dmmt.stuff"):
+            return finalize_scan_bytes(host, known_bits)
 
     return read
 

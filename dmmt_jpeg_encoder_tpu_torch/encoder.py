@@ -35,13 +35,19 @@ Under torch.profiler the host steps here and in onedispatch.py show as
 `dmmt.` ranges (utils/profiling.span): the staging ring's wait, fill and
 enqueue, the program's lookup, lease, fill and replay, the finish's
 bit-count wait, spec decode, word fetch, stuffing and release, and the
-container.
+container. The two-dispatch tail has its own: the wait for the first half
+and the histograms' copy (`dmmt.hist_wait`), the host tables and the
+stream's exact length (`dmmt.host_tables`), then in the pack's read
+(bitstream/device_pack.py) the wait for the pack (`dmmt.pack_wait`), the
+word fetch and the stuffing (`dmmt.word_fetch`, `dmmt.stuff`, named as in
+the one-dispatch finish). The benchmark's `bmng21600_p420.tile` cell
+reads them: its 21600x21600 tiles are past the device table bound.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -101,24 +107,38 @@ class HuffmanTables:
     luma_ac: list[SymbolCodeLength]
     chroma_dc: list[SymbolCodeLength]
     chroma_ac: list[SymbolCodeLength]
+    # the exact scan length these tables give the histograms they were built
+    # from (from_host_histograms; None for tables decoded from a device spec)
+    scan_bits: int | None = field(default=None, init=False, compare=False)
+    _flat: tuple | None = field(default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def from_histograms(cls, result: DeviceEncodeResult) -> "HuffmanTables":
-        _materialize_histograms(result)
-        return cls.from_host_histograms(result.luma_dc_hist, result.luma_ac_hist,
-                                        result.chroma_dc_hist, result.chroma_ac_hist)
+        """Tables from a first half's histograms: the wait for the first half
+        and the histograms' one copy (dmmt.hist_wait), then
+        from_host_histograms (dmmt.host_tables)."""
+        with span("dmmt.hist_wait"):
+            _materialize_histograms(result)
+        with span("dmmt.host_tables"):
+            return cls.from_host_histograms(result.luma_dc_hist, result.luma_ac_hist,
+                                            result.chroma_dc_hist, result.chroma_ac_hist)
 
     @classmethod
     def from_host_histograms(cls, luma_dc, luma_ac, chroma_dc, chroma_ac) -> "HuffmanTables":
-        """Package-merge tables from four host (numpy) histograms."""
-        return cls(*(code_lengths_from_histogram(h) for h in (luma_dc, luma_ac,
-                                                              chroma_dc, chroma_ac)))
+        """Package-merge tables from four host (numpy) histograms, with their
+        canonical codes (flat) and the exact scan length they give."""
+        hists = (luma_dc, luma_ac, chroma_dc, chroma_ac)
+        tables = cls(*(code_lengths_from_histogram(h) for h in hists))
+        tables.scan_bits = exact_scan_bits(hists, *tables.flat())
+        return tables
 
     def flat(self) -> tuple:
         """(codes[256], lens[256]) arrays of the four tables
-        (flat_code_arrays), luma DC first."""
-        return tuple(flat_code_arrays(t) for t in (self.luma_dc, self.luma_ac,
-                                                   self.chroma_dc, self.chroma_ac))
+        (flat_code_arrays), luma DC first; made once."""
+        if self._flat is None:
+            self._flat = tuple(flat_code_arrays(t) for t in (self.luma_dc, self.luma_ac,
+                                                             self.chroma_dc, self.chroma_ac))
+        return self._flat
 
 
 def _materialize_histograms(result: DeviceEncodeResult) -> None:
@@ -154,17 +174,16 @@ def pack_scan(
     config: EncoderConfig,
     use_native: bool = True,
 ) -> bytes:
-    """The two-dispatch encode's second dispatch: the device pack, given the
-    exact stream length from the histograms, or the host packer (native C,
-    or the Python fallback with use_native=False) on the blocks fetched in
-    one copy."""
+    """The two-dispatch encode's second dispatch, with the tables
+    HuffmanTables.from_histograms made of this result: the device pack,
+    given the exact stream length from the histograms (the tables'
+    scan_bits), or the host packer (native C, or the Python fallback with
+    use_native=False) on the blocks fetched in one copy."""
     flat = tables.flat()
     lpm = config.chroma_subsampling.luma_blocks_per_mcu
     if _resolve_backend(config) == "device":
-        hists = (result.luma_dc_hist, result.luma_ac_hist, result.chroma_dc_hist,
-                 result.chroma_ac_hist)
         return device_pack_scan(result.luma, result.cb, result.cr, lpm, *flat,
-                                known_bits=exact_scan_bits(hists, *flat))
+                                known_bits=tables.scan_bits)
     n_luma, n_chroma = int(result.luma.shape[0]), int(result.cb.shape[0])
     blocks = torch.cat([result.luma, result.cb, result.cr]).cpu().numpy()
     luma, cb, cr = np.split(blocks, [n_luma, n_luma + n_chroma])
@@ -487,12 +506,10 @@ def _encode_batch_fused(
     host = torch.cat(hists, dim=1).cpu().numpy()  # [B, 16 + 256 + 16 + 256]
     tables_list, flats, bits = [], [], []
     for row in host:
-        hists = np.split(row, [16, 272, 288])
-        tables = HuffmanTables.from_host_histograms(*hists)
-        flat = tables.flat()
+        tables = HuffmanTables.from_host_histograms(*np.split(row, [16, 272, 288]))
         tables_list.append(tables)
-        flats.append(flat)
-        bits.append(exact_scan_bits(hists, *flat))
+        flats.append(tables.flat())
+        bits.append(tables.scan_bits)
     scans = device_pack_scan_batch(luma, cb, cr, config.chroma_subsampling.luma_blocks_per_mcu,
                                    flats, bits)
     return [_jpeg(px.shape, config, luma_q, chroma_q, scan, tables)

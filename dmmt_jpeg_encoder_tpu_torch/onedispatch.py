@@ -70,7 +70,11 @@ trip; over PCIe that round trip is small, so the port does not.)
 Scale guard: the device table build is exact for per-table symbol totals
 below 2**28; encoder.encode_array and encode_batch send larger images
 through the two-dispatch path (host tables from fetched histograms), and
-the start functions here raise NotImplementedError for them.
+the start functions here raise NotImplementedError for them. A
+21600x21600 Blue Marble tile (2700 x 2700 luma blocks, 466,560,000
+symbols) is one: the benchmark's `bmng21600_p420.tile` cell runs it, and
+its host tail shows as `dmmt.hist_wait`, `dmmt.host_tables`,
+`dmmt.pack_wait`, `dmmt.word_fetch` and `dmmt.stuff` (encoder.py).
 """
 
 from __future__ import annotations
