@@ -234,6 +234,9 @@ KERNEL_INFO.update({
                      "dmmt_jpeg_encoder_tpu/ops/fused.py:102"),
     "probe": ("dmmt_jpeg_encoder_tpu_torch/csrc/probe.cu",
               "dmmt_jpeg_encoder_tpu/utils/capability.py:117"),
+    # no TPU kernel: the stuffing the JAX package does on the host
+    "scan_stuff": ("dmmt_jpeg_encoder_tpu_torch/csrc/scan_stuff.cu",
+                   "none (dmmt_jpeg_encoder_tpu/bitstream/device_pack.py finalize_scan_bytes)"),
     # the split arms of DMMT_P1_PREC=high (their own launch counts)
     "plane_dct_mm_high": ("dmmt_jpeg_encoder_tpu_torch/csrc/mxu_dct.cu",
                           "dmmt_jpeg_encoder_tpu/ops/mxu_dct.py:162"),
@@ -259,7 +262,8 @@ ROUTE_LAUNCHES = {
 # the mode sweep, the probe of the sharded encode its collective
 # measurement runs); every other kernel must not launch there.
 BENCH_ROUNDS = 3
-BENCH_KERNELS = ("phase1", "block_hist", "scan_pack", "histogram", "phase1_mm", "probe")
+BENCH_KERNELS = ("phase1", "block_hist", "scan_pack", "histogram", "phase1_mm", "probe",
+                 "scan_stuff")
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # Operations per unit of work, counted from the kernels' arithmetic (an fma
@@ -633,12 +637,19 @@ def main() -> int:
     from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import (
         byteswap_words,
         exact_scan_bits,
+        finalize_scan_bytes,
         interleave_scan,
         pack_scan_plain,
         pack_scan_slab_plain,
         pack_to_words,
     )
     from dmmt_jpeg_encoder_tpu_torch.bitstream.emission_pack import pack_emission_words
+    from dmmt_jpeg_encoder_tpu_torch.bitstream.scan_stuff import (
+        stuff_scan,
+        stuff_scan_plain,
+        stuffed_start,
+        tail_layout,
+    )
     from dmmt_jpeg_encoder_tpu_torch.bitstream.fused_pack import (
         fused_pack_words,
         fused_pack_words_slab,
@@ -828,6 +839,16 @@ def main() -> int:
                 raise AssertionError(f"{name}: scan_pack with no valid block emitted bits")
         log(f"{name}: scan_pack with valid masks (prefix {int(masks['prefix'].sum())} of {n_scan} "
             "blocks, none) == plain")
+        # the stuffing behind the pack, on copies of its words
+        words_k, words_p, n_raw = wk[0].clone(), wk[0].cpu(), (int(wk[1]) + 7) // 8
+        n_stuffed = int(stuff_scan(words_k, wk[1]))
+        start = stuffed_start(int(wk[1]))
+        stuffed = words_k.view(torch.uint8)[start : start + n_stuffed].cpu().numpy().tobytes()
+        if n_stuffed != int(stuff_scan_plain(words_p, wk[1].cpu())) or n_stuffed < n_raw \
+                or stuffed != words_p.view(torch.uint8)[start : start + n_stuffed].numpy().tobytes() \
+                or stuffed != finalize_scan_bytes(wk[0].cpu().numpy(), int(wk[1])):
+            raise AssertionError(f"{name}: scan_stuff kernel != plain or the host's stuffing")
+        log(f"{name}: scan_stuff == plain == the host's stuffing ({n_raw} -> {n_stuffed} bytes)")
         # the weighted histogram, the lookup and the emission pack on this
         # image's two-dispatch inputs (DMMT_HIST=pallas, DMMT_NO_FUSED_PACK=1)
         bits = int(wk[1].item())
@@ -898,6 +919,21 @@ def main() -> int:
                                          n_blocks * 64 * OPS_HIST_PER_COEFF)
             bounds["scan_pack"] = bound(pack_bytes(n_blocks, 1, wk[1].tolist()),
                                         n_blocks * 64 * OPS_PACK_PER_COEFF)
+            # each call on a state region zeroed first, as the pack's fill
+            # leaves it; the fill is timed alone and taken out
+            state = words_k.view(torch.uint8)[tail_layout(4 * n_words)[1] :]
+
+            def k_stuff():
+                state.zero_()
+                return stuff_scan(words_k, wk[1])
+
+            t_fill = device_ms(state.zero_)
+            timing["scan_stuff"] = (device_ms(k_stuff) - t_fill,
+                                    device_ms(lambda: stuff_scan_plain(words_p, wk[1].cpu())))
+            bounds["scan_stuff"] = bound(n_raw + n_stuffed, 0)
+            log(f"4k scan_stuff: kernel {timing['scan_stuff'][0]:.4f} ms (with its state's fill "
+                f"{timing['scan_stuff'][0] + t_fill:.4f}, the fill {t_fill:.4f}), plain "
+                f"{timing['scan_stuff'][1]:.4f} ms, bound {bounds['scan_stuff'][0]:.4f} ms")
 
     # the slab scan pack: against its plain version and one scan-pack call per image
     for name in ("batch_odd_p422", "batch_1080p_p420"):
@@ -2182,8 +2218,8 @@ def main() -> int:
         values = device_pack.pack_values([tables.flat()], [0])
         if arm == "eager":
             t0 = time.perf_counter()
-            words, _ = device_pack.pack_enqueue(result.luma[None], result.cb[None], result.cr[None],
-                                                lpm4, upload(values, dev), n_words, not staged)
+            words = device_pack.pack_enqueue(result.luma[None], result.cb[None], result.cr[None],
+                                             lpm4, upload(values, dev), n_words, not staged)[0]
             ms = (time.perf_counter() - t0) * 1e3
             words[:1].cpu()
             return ms
@@ -2192,7 +2228,7 @@ def main() -> int:
         program = pool.lease()
         try:
             t0 = time.perf_counter()
-            ((words, _),) = program.run((result.luma, result.cb, result.cr, values), 0)
+            ((words, *_),) = program.run((result.luma, result.cb, result.cr, values), 0)
             ms = (time.perf_counter() - t0) * 1e3
             words[:1].cpu()
         finally:

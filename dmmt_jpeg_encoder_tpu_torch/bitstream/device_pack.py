@@ -35,7 +35,11 @@ Counterpart of dmmt_jpeg_encoder_tpu.bitstream.device_pack:
   word fetch. The staged packs' word buffers are the JAX package's
   power-of-two bucket (`words_capacity`), so one program serves many
   streams; the fused pack keeps the worst case of the shape.
-- `finalize_scan_bytes` / `exact_scan_bits`: host numpy.
+- `finalize_scan_bytes` / `pad_and_stuff` / `exact_scan_bits`: host
+  numpy. The fused pack stuffs on the device behind the scan-pack kernel
+  (bitstream/scan_stuff.py), and its read fetches final bytes; the host
+  stuffs the staged packs' streams, the fused batch's and the sharded
+  tail's, and a fused pack's where its word buffer's tail had no room.
 
 Table lookups assume every symbol present in the data has a codeword,
 which holds when the tables were built from this image's own histograms.
@@ -54,6 +58,7 @@ from ..ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
 from ..utils.capability import mode_keyed_cache
 from ..utils.device import upload
 from ..utils.profiling import span
+from .scan_stuff import stuff_scan, stuffed_start
 
 # Static per-block worst case: DC 31 bits, 63 AC emissions of <=31 bits,
 # 3 ZRL of <=16 bits, EOB <=16 bits -> round up to 64 words.
@@ -455,11 +460,12 @@ def pack_enqueue(
     """The second half of the two-dispatch encode, enqueued op by op: B
     images' DPCM'd blocks (luma [B, NL, 64], cb/cr [B, NC, 64]) and
     pack_values' vector on their device -> (memory-order words int32
-    [n_words], total bits int64). `fused` (one image): the scan interleave
-    and the scan-pack kernel; else the staged pack (block_emissions with
-    the lookup kernel, the emission-pack kernel with each image's stream at
-    its word base, byteswap_words). What the pack programs capture and
-    what the CPU runs."""
+    [n_words], total bits int64). `fused` (one image): the scan interleave,
+    the scan-pack kernel and the stuffing behind it (scan_stuff.stuff_scan),
+    whose stuffed length (int64 [1]) joins the outputs; else the staged
+    pack (block_emissions with the lookup kernel, the emission-pack kernel
+    with each image's stream at its word base, byteswap_words). What the
+    pack programs capture and what the CPU runs."""
     from .emission_pack import pack_emission_words
     from .fused_pack import fused_pack_words
 
@@ -467,7 +473,8 @@ def pack_enqueue(
     if fused:
         lpm = luma_per_mcu
         scan = interleave_scan(luma[0], cb[0], cr[0], int(cb.shape[1]), lpm)
-        return fused_pack_words(scan, lpm + 2, lpm, codes[0], lens[0], n_words)
+        words, total_bits = fused_pack_words(scan, lpm + 2, lpm, codes[0], lens[0], n_words)
+        return words, total_bits, stuff_scan(words, total_bits)
     emissions, boff = batch_emissions(luma, cb, cr, luma_per_mcu, codes, lens, word_base)
     words, total_bits = pack_emission_words(*emissions, n_words, boff=boff)
     return byteswap_words(words), total_bits
@@ -541,10 +548,14 @@ def _compiled_pack_batch(n_images: int, n_luma: int, n_chroma: int, luma_per_mcu
 def _checked_bytes(known_bits: int):
     """The read of one image's pack: with DMMT_CHECK_BITS set, the packed
     bit count against `known_bits`; then the wait for the pack
-    (dmmt.pack_wait: the stream the fetch's copy would wait on), one fetch
-    of the needed words (dmmt.word_fetch) and the host tail (dmmt.stuff)."""
+    (dmmt.pack_wait: the stream the fetch's copy would wait on) and one
+    fetch (dmmt.word_fetch): the fused pack's stuffed length and that many
+    stuffed bytes, which the host copies (dmmt.stuff > dmmt.stuff_card), or
+    the needed words, which it stuffs (dmmt.stuff > dmmt.stuff_host: the
+    staged pack, or a stuffed stream that had no room)."""
 
-    def read(words: torch.Tensor, total_bits: torch.Tensor) -> bytes:
+    def read(words: torch.Tensor, total_bits: torch.Tensor,
+             stuffed: torch.Tensor | None = None) -> bytes:
         if check_bits_enabled() and int(total_bits.sum()) != known_bits:
             raise AssertionError(
                 f"device packed {int(total_bits.sum())} scan bits but the histograms "
@@ -554,9 +565,9 @@ def _checked_bytes(known_bits: int):
             if words.device.type == "cuda":
                 torch.cuda.current_stream(words.device).synchronize()
         with span("dmmt.word_fetch"):
-            host = words[: (known_bits + 31) // 32].cpu().numpy()
-        with span("dmmt.stuff"):
-            return finalize_scan_bytes(host, known_bits)
+            length = -1 if stuffed is None else int(stuffed)
+            host = scan_fetch_slice(words, known_bits, length).cpu().numpy()
+        return scan_bytes(host, known_bits, length)
 
     return read
 
@@ -574,7 +585,8 @@ def device_pack_scan(
 ) -> bytes:
     """Pack one image's DPCM'd zigzag blocks (luma in MCU order, on their
     device) with host-built flat code arrays into stuffed scan bytes: the
-    scan-pack kernel, or with DMMT_NO_FUSED_PACK set the staged pack.
+    scan-pack kernel and the stuffing kernel behind it, or with
+    DMMT_NO_FUSED_PACK set the staged pack (stuffed on the host).
     `known_bits` (exact_scan_bits of the histograms) is the stream length,
     so one fetch of the needed words follows the pack. With DMMT_CHECK_BITS
     set, the packed bit count is checked against it first. On a card: one
@@ -643,17 +655,48 @@ def device_pack_scan_batch(
     return _run_once(pool, (luma, cb, cr, values), read)
 
 
+def scan_fetch_slice(words: torch.Tensor, total_bits: int, stuffed: int) -> torch.Tensor:
+    """What a finish fetches of a word buffer (int32 [n_words]): the
+    stuffed scan the stuffing kernel left in its tail (`stuffed` bytes,
+    scan_stuff.stuffed_start), or where it had no room (stuffed -1) the
+    packed stream's words."""
+    if stuffed >= 0:
+        start = stuffed_start(total_bits)
+        return words.view(torch.uint8)[start : start + stuffed]
+    return words[: (int(total_bits) + 31) // 32]
+
+
+def scan_bytes(host: np.ndarray, total_bits: int, stuffed: int) -> bytes:
+    """The scan's bytes from scan_fetch_slice's fetch (dmmt.stuff): the
+    stuffed bytes copied (dmmt.stuff_card), or the packed words stuffed here
+    (dmmt.stuff_host)."""
+    with span("dmmt.stuff"):
+        if stuffed >= 0:
+            with span("dmmt.stuff_card"):
+                return host.tobytes()
+        with span("dmmt.stuff_host"):
+            return finalize_scan_bytes(host, total_bits)
+
+
 def finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:
     """Host tail: trim, 1-pad the final byte, byte-stuff 0xFF -> 0xFF 0x00.
 
     `words` must already be in memory byte order, so this is a uint8 view
-    plus the stuffing pass."""
+    plus the stuffing pass (pad_and_stuff). The host's fallback where the
+    stuffing on the device (bitstream/scan_stuff.py) had no room, and the
+    tail of the routes that do not stuff on the device."""
     n_bytes = (int(total_bits) + 7) // 8
-    raw = np.ascontiguousarray(words).view(np.uint8)[:n_bytes].copy()
-    pad = n_bytes * 8 - int(total_bits)
+    return pad_and_stuff(np.ascontiguousarray(words).view(np.uint8)[:n_bytes].copy(), total_bits)
+
+
+def pad_and_stuff(raw: np.ndarray, total_bits: int) -> bytes:
+    """A stream of total_bits bits in its ceil(total_bits / 8) bytes (uint8,
+    modified in place) -> the scan's bytes: the final byte 1-padded, a 0x00
+    after every 0xFF."""
+    pad = len(raw) * 8 - int(total_bits)
     if pad:
         raw[-1] |= (1 << pad) - 1  # JPEG 1-padding (encoder.rs:267)
-    ff = np.flatnonzero(raw == 0xFF)
+    ff = np.flatnonzero(raw == 0xFF)  # byte stuffing (segment_marker_injector.rs:14-30)
     if len(ff):
         raw = np.insert(raw, ff + 1, 0)
     return raw.tobytes()

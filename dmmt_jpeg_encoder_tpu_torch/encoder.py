@@ -34,7 +34,9 @@ the mxu and fused1 routes at either DMMT_P1_PREC (ops/mxu_dct).
 Under torch.profiler the host steps here and in onedispatch.py show as
 `dmmt.` ranges (utils/profiling.span): the staging ring's wait, fill and
 enqueue, the program's lookup, lease, fill and replay, the finish's
-bit-count wait, spec decode, word fetch, stuffing and release, and the
+bit-count wait, spec decode, word fetch, stuffing (`dmmt.stuff`, with
+`dmmt.stuff_card` inside where the scan came stuffed from the card and
+`dmmt.stuff_host` where the host stuffed it) and release, and the
 container. The two-dispatch tail has its own: the wait for the first half
 and the histograms' copy (`dmmt.hist_wait`), the host tables and the
 stream's exact length (`dmmt.host_tables`), then in the pack's read

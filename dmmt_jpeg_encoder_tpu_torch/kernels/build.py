@@ -48,7 +48,7 @@ LAUNCHES: dict[str, int] = {
     "phase1": 0, "block_hist": 0, "scan_pack": 0, "scan_pack_slab": 0,
     "histogram": 0, "table_lookup": 0, "pack_emissions": 0,
     "plane_dct": 0, "plane_dct_mm": 0, "phase1_mm": 0, "block_dct_zz": 0, "probe": 0,
-    "plane_dct_mm_high": 0, "phase1_mm_high": 0,
+    "plane_dct_mm_high": 0, "phase1_mm_high": 0, "scan_stuff": 0,
 }
 
 # captured program kind -> CUDA graph replays since the last reset: the
@@ -80,6 +80,7 @@ _SIGNATURES = {
                              _P),
     "dmmt_block_dct_zz": (_P, _LL, _P, _P, _P),
     "dmmt_probe": (_P, _P, _I, _P),
+    "dmmt_scan_stuff": (_P, _I, _LL, _P, _P),
 }
 
 _LOCK = threading.Lock()

@@ -88,6 +88,7 @@ from ..bitstream.device_pack import (
     exact_scan_bits,
     interleave_scan,
     pack_values,
+    pad_and_stuff,
     stage_values,
     staged_pack_words,
     unpack_values,
@@ -258,14 +259,7 @@ def merge_and_stuff(chunks: list) -> bytes:
     """The scan tail of a sharded encode: bit-merge the shards' streams,
     1-pad the final byte (reference: encoder.rs:267), byte-stuff 0xFFs
     (segment_marker_injector.rs:14-30)."""
-    merged, total_bits = merge_bit_streams(chunks)
-    pad = len(merged) * 8 - total_bits
-    if pad:
-        merged[-1] |= (1 << pad) - 1
-    ff = np.flatnonzero(merged == 0xFF)
-    if len(ff):
-        merged = np.insert(merged, ff + 1, 0)
-    return merged.tobytes()
+    return pad_and_stuff(*merge_bit_streams(chunks))
 
 
 # --- phase 1 and the histograms ---------------------------------------------

@@ -21,7 +21,8 @@ the host->device and device->host copy time overlaps kernel time.
 `stages` times the host side of the same runs (and of the slab's one-pack
 arm) with a host clock around each step of encode_batch: staging and
 upload issue, enqueue of the device work, the small-copy enqueue, the wait
-for it, the table-spec decode, the word fetch, byte stuffing and the
+for it, the table-spec decode, the word fetch, the stuffed bytes' copy
+(or the host's stuffing, where the card's had no room) and the
 container; it prints ms per image for each. For the fused batch the steps
 are staging and the upload's enqueue, the replay of phase 1 and the histograms
 (one program), the host tables (package-merge), the pack (one program's
@@ -263,8 +264,8 @@ def stages() -> None:
         (encoder, "prefetch_one_dispatch", "small-copy enqueue"),
         (encoder, "finish_one_dispatch", "wait for small copy"),
         (onedispatch, "tables_from_spec", "spec decode"),
-        (onedispatch, "_fetch_words", "word fetch"),
-        (onedispatch, "finalize_scan_bytes", "stuffing"),
+        (onedispatch, "_fetch", "word fetch"),
+        (onedispatch, "scan_bytes", "stuffing"),
         (encoder, "_jpeg", "container"),
     ], {
         "slab_1080p_x16": (hd, {}, 0),

@@ -246,6 +246,9 @@ def test_port_imports_no_jax():
         " cfg) == scan\n"
         "group = od.start_one_dispatch_multi(np.stack([planar, planar]), 255, cfg, lq, cq, device='cpu')\n"
         "assert [od.finish_one_dispatch(s, cfg) for s in group] == [scan, scan]\n"
+        "from dmmt_jpeg_encoder_tpu_torch.bitstream.scan_stuff import stuff_scan\n"
+        "w = torch.zeros(32, dtype=torch.int32); w[0] = -1\n"
+        "assert stuff_scan(w, torch.tensor([32])).tolist() == [8]\n"
         "from dmmt_jpeg_encoder_tpu_torch.debug.jpeg_decoder import decode_jpeg, parse_jpeg\n"
         "assert decode_jpeg(jpeg).shape == (16, 24, 3) and parse_jpeg(jpeg).width == 24\n"
         "from dmmt_jpeg_encoder_tpu_torch.huffman import HuffmanDecoder\n"
@@ -279,7 +282,8 @@ def test_port_imports_no_jax():
 def test_nvcc_command_line():
     assert [s.name for s in build.sources()] == [
         "block_dct.cu", "block_hist.cu", "emission_pack.cu", "fused_phase1.cu", "histogram.cu",
-        "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "probe.cu", "scan_pack.cu", "table_lookup.cu"]
+        "mxu_dct.cu", "phase1.cu", "plane_dct.cu", "probe.cu", "scan_pack.cu", "scan_stuff.cu",
+        "table_lookup.cu"]
     assert [h.name for h in build.headers()] == ["dct8.cuh", "strip.cuh"]
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))

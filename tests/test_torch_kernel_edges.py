@@ -28,7 +28,11 @@ case's own histograms:
   form against the JAX packer image by image;
 - phase1_zigzag_blocks (DC DPCM'd) against the JAX run_device_pipeline,
   except the 7x17 and 333x1001 8-bit geometries, which
-  test_torch_phase1.py holds already."""
+  test_torch_phase1.py holds already.
+
+And for the stuffing kernel (csrc/scan_stuff.cu) on STUFF_EDGE_CASES: its
+plain version's stuffed tail against the JAX package's host stuffing
+(finalize_scan_bytes), byte for byte, and -1 where the tail is too short."""
 
 import re
 from functools import partial
@@ -48,7 +52,7 @@ from dmmt_jpeg_encoder_tpu.ops.pallas_lookup import pallas_table_lookup_grouped
 from dmmt_jpeg_encoder_tpu.pipeline import run_device_pipeline
 from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
 from dmmt_jpeg_encoder_tpu_torch.bitstream import device_pack as tpack
-from dmmt_jpeg_encoder_tpu_torch.bitstream import fused_pack
+from dmmt_jpeg_encoder_tpu_torch.bitstream import fused_pack, scan_stuff
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset
 from dmmt_jpeg_encoder_tpu_torch.ops.fused import fused_dct_quantize_zigzag, fused_matrix, fused_reference
 from dmmt_jpeg_encoder_tpu_torch.ops.lookup import table_lookup_grouped
@@ -62,12 +66,15 @@ from torch_port_fixtures import (
     SCAN_PACK_SLAB_EDGES,
     SCAN_PACK_TILE,
     SCAN_PACK_TILE_WORDS,
+    STUFF_CHUNK,
+    STUFF_EDGE_CASES,
     block_dct_edge_inputs,
     lookup_edge_inputs,
     phase1_edge_pixels,
     scan_pack_edge_blocks,
     scan_pack_edge_mask,
     scan_pack_tables,
+    stuff_edge_rows,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "dmmt_jpeg_encoder_tpu_torch" / "csrc"
@@ -184,6 +191,35 @@ def test_scan_pack_edge_constants_are_the_kernels():
         codes, lens = scan_pack_tables(blocks, stride, lpm)
         bits = _plain_pack(blocks[:SCAN_PACK_TILE], stride, lpm, codes, lens)[1]
         assert (bits > 32 * (SCAN_PACK_TILE_WORDS - 1)) == (case == "overfull"), case
+
+
+@pytest.mark.parametrize("case", STUFF_EDGE_CASES)
+def test_stuff_plain_matches_jax_finalize_on_edge_cases(case):
+    words, bits = stuff_edge_rows(case)
+    rows = torch.from_numpy(words.copy())
+    lengths = scan_stuff.stuff_scan(rows if len(bits) > 1 else rows[0], torch.from_numpy(bits))
+    assert lengths.tolist() == [int(rows[r].view(torch.int64)[-1]) for r in range(len(bits))]
+    _, state_off = scan_stuff.tail_layout(4 * words.shape[1])
+    for r, nbits in enumerate(bits.tolist()):
+        want = jpack.finalize_scan_bytes(words[r], nbits)
+        start, raw = scan_stuff.stuffed_start(nbits), rows[r].view(torch.uint8).numpy()
+        n_bytes = (nbits + 7) // 8
+        np.testing.assert_array_equal(raw[:n_bytes], words[r].view(np.uint8)[:n_bytes])  # kept
+        if start + len(want) > state_off:
+            assert int(lengths[r]) == -1 and case.startswith("short")
+        else:
+            assert int(lengths[r]) == len(want) >= n_bytes
+            assert raw[start : start + len(want)].tobytes() == want
+
+
+def test_stuff_edge_constants_are_the_kernels():
+    src = (CSRC / "scan_stuff.cu").read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src)[1])
+    per_thread = int(re.search(r"constexpr int BYTES = (\d+);", src)[1])
+    assert threads * per_thread == STUFF_CHUNK == scan_stuff.CHUNK
+    # the cases reach the edges they name: three chunks, twice a chunk's bytes stuffed
+    words, bits = stuff_edge_rows("all_ff")
+    assert (int(bits[0]) + 7) // 8 > 2 * STUFF_CHUNK
 
 
 @pytest.mark.parametrize("h,w,preset,maxval", [

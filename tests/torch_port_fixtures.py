@@ -222,6 +222,20 @@ SCAN_PACK_EDGE_MASKS = ("all", "none", "alternating", "single")
 # the slab scan pack's images (B = 1 and 3), each a case of three tiles and
 # five blocks with its own tables
 SCAN_PACK_SLAB_EDGES = (("extreme",), ("tiles3+5", "zero_runs", "overfull"))
+# Edge cases of the stuffing kernel (csrc/scan_stuff.cu), shared the same
+# way. STUFF_CHUNK is its CHUNK (stream bytes a chunk; a thread reads 16):
+# every 1-pad of the last byte, an all-0xFF stream over three chunks (its
+# stuffed copy twice as long), a 0xFF made by the 1-pad alone, a 0xFF at
+# each offset in a word and on both sides of thread and chunk edges, an
+# empty stream, slab rows of different lengths, and rows whose tail is too
+# short for the stuffed copy (the host stuffs those: length -1).
+STUFF_CHUNK = 4096
+STUFF_EDGE_CASES = (
+    "pad0", "pad1", "pad2", "pad3", "pad4", "pad5", "pad6", "pad7", "all_ff", "pad_makes_ff",
+    "ff_offsets", "empty", "slab_rows", "short_tail", "short_slab_row",
+)
+
+
 # (height, width, preset, maxval) of the phase-1 kernel's strip tiling:
 # widths whose rows are not whole 16-byte chunks (7x17, 9x35, 333x1001),
 # each preset, 16-bit samples and a one-level range
@@ -500,6 +514,50 @@ def scan_pack_edge_mask(name: str, n: int) -> np.ndarray:
     idx = np.arange(n)
     return {"all": idx >= 0, "none": idx < 0, "alternating": idx % 2 == 0,
             "single": idx == n // 2}[name].astype(np.int32)
+
+
+def _stuff_row(rng, n_bytes: int, pad: int, ff_at=(), ff_share: float = 0.1) -> np.ndarray:
+    """A stream of n_bytes bytes whose last `pad` bits are zero (bits past
+    the stream), a share of them 0xFF, and 0xFF at `ff_at`."""
+    raw = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    raw[rng.random(n_bytes) < ff_share] = 0xFF
+    raw[[i for i in ff_at if i < n_bytes]] = 0xFF
+    if n_bytes and pad:
+        raw[-1] &= (0xFF << pad) & 0xFF
+    return raw
+
+
+def stuff_edge_rows(case: str) -> tuple[np.ndarray, np.ndarray]:
+    """One STUFF_EDGE_CASES case: (words int32 [B, n_words], each row a
+    stream in memory byte order, zero past its bits; total_bits int64 [B]).
+    Rows hold 3 x their stream + 64 words (room for the stuffed copy)
+    unless the case is a short tail: 2 words past the stream, as a scan
+    pack's worst-case buffer leaves at least."""
+    rng = np.random.default_rng(STUFF_EDGE_CASES.index(case) + 9100)
+    edges = [e + d for e in (16, 32, STUFF_CHUNK, 2 * STUFF_CHUNK) for d in (-1, 0, 1)]
+    rows = {  # (n_bytes, pad, the stream's bytes)
+        "all_ff": [(3 * STUFF_CHUNK - 5, 0, np.full(3 * STUFF_CHUNK - 5, 0xFF, np.uint8))],
+        "pad_makes_ff": [(301, 4, np.r_[_stuff_row(rng, 300, 0, ff_share=0), [0xF0]])],
+        "ff_offsets": [(2 * STUFF_CHUNK + 37, 3, _stuff_row(
+            rng, 2 * STUFF_CHUNK + 37, 3, ff_at=[4 * k + j for k in (0, 5, 900) for j in range(4)]
+            + edges, ff_share=0.02))],
+        "empty": [(0, 0, np.zeros(0, np.uint8))],
+        "slab_rows": [(0, 0, np.zeros(0, np.uint8)), (5000, 3, _stuff_row(rng, 5000, 3)),
+                      (100, 0, _stuff_row(rng, 100, 0, ff_share=0.5)),
+                      (STUFF_CHUNK, 7, _stuff_row(rng, STUFF_CHUNK, 7))],
+        "short_tail": [(700, 2, _stuff_row(rng, 700, 2))],
+        "short_slab_row": [(60, 1, _stuff_row(rng, 60, 1)), (9000, 0, _stuff_row(rng, 9000, 0))],
+    }.get(case)
+    if rows is None:  # "pad<k>": a stream of 1,001 bytes whose last k bits are padding
+        pad = int(case[3:])
+        rows = [(1001, pad, _stuff_row(rng, 1001, pad))]
+    need = max((n + 3) // 4 for n, _, _ in rows)
+    n_words = need + 2 if case.startswith("short") else 3 * need + 64
+    n_words += n_words % 2
+    words = np.zeros((len(rows), n_words), np.int32)
+    for r, (n, _, raw) in enumerate(rows):
+        words[r].view(np.uint8)[:n] = raw
+    return words, np.array([8 * n - pad for n, pad, _ in rows], np.int64)
 
 
 def scan_pack_tables(blocks: np.ndarray, stride: int, lpm: int) -> tuple[np.ndarray, np.ndarray]:
