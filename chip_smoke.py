@@ -102,7 +102,8 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    golden JPEG decoded by the port's debug.jpeg_decoder (the card's machine
    has no PIL), its PSNR against the source held to the floor that
    tests/test_torch_tooling.py measures on the CPU;
-   then the one-dispatch programs (CUDA graphs, onedispatch.py): every
+   then the one-dispatch programs (CUDA graphs, onedispatch.py on
+   programs.py): every
    fixture under every route, the 333x1001 fixture under DMMT_HIST=matmul
    and pallas, the 4K and 7x17 frames as planar host arrays and card
    tensors, the odd and 1080p batches through start_one_dispatch_slab with
@@ -163,8 +164,8 @@ checkout; imports nothing of JAX. Phases, each failing loudly:
    host scan backend, 16 x 1080p with fused_batch=16, and the sharded
    two-dispatch at n = 2 on card 0 past a device table bound lowered to
    one symbol and under DMMT_NO_FUSED_PACK=1: each replayed JPEG held
-   against the eager enqueue's (pipeline.program_card naming no card,
-   or eager_sharded) and its golden, each half one replay with its
+   against the eager enqueue's (programs.card naming no card:
+   eager_programs) and its golden, each half one replay with its
    kernels counted; each start function's state (single, slab, multi,
    sharded, sharded slab, sharded two-dispatch) finished, then another
    image started on its instance and finished, then the first finished
@@ -633,7 +634,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import dmmt_jpeg_encoder_tpu_torch as port
-    from dmmt_jpeg_encoder_tpu_torch import onedispatch
+    from dmmt_jpeg_encoder_tpu_torch import onedispatch, programs
     from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import (
         byteswap_words,
         exact_scan_bits,
@@ -1696,10 +1697,10 @@ def main() -> int:
             f"on {gpu}")
     pool = onedispatch._compiled_onedispatch(
         2160, 3840, cfg4.chroma_subsampling, cfg4.dct_variant, False,
-        *onedispatch.program_key(dpx, 255, lq4, cq4, dpx.device))
+        *programs.program_key(dpx, 255, lq4, cq4, dpx.device))
     log(f"4k_p420 one instance's graph pool: {max((p.bytes for p in pool.idle), default=0)} bytes, "
         f"{len(pool.idle)} instances "
-        f"idle; all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda."
+        f"idle; all captured instances {programs.graph_bytes()} bytes; torch.cuda."
         f"memory_reserved {torch.cuda.memory_reserved(dev)} bytes after the phase; graph replays so "
         f"far {json.dumps(replays)}; phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -1711,15 +1712,16 @@ def main() -> int:
         return run_path(label, fn, expect, replayed)
 
     @contextlib.contextmanager
-    def eager_sharded():
-        """The sharded starts enqueue op by op, as across distinct cards
-        (sharding._start), in place of a program replay."""
-        real = sharding._program_card
-        sharding._program_card = lambda pixels, devices: None
+    def eager_programs():
+        """Every program enqueues op by op (programs.card names no card), in
+        place of a replay: the sharded starts as across distinct cards
+        (sharding._start)."""
+        real = programs.card
+        programs.card = lambda pixels, device: None
         try:
             yield
         finally:
-            sharding._program_card = real
+            programs.card = real
 
     def check_eager(label, graph, eager):
         if graph != eager:
@@ -1764,7 +1766,7 @@ def main() -> int:
                 if len(two_dispatch_runs) != two:
                     raise AssertionError(f"sharded n={n} {label}: {len(two_dispatch_runs)} "
                                          f"two-dispatch encodes, expected {two}")
-                with eager_sharded():
+                with eager_programs():
                     check_eager(f"sharded n={n} {label}", outputs, fixtures_at())
             finally:
                 onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved_bound
@@ -1795,7 +1797,7 @@ def main() -> int:
             with scoped_env(env):
                 jpeg = run_sharded(f"4k_p420 sharded n={n} on one card, {label}", encode_4k, expect,
                                    replayed)
-                with eager_sharded():
+                with eager_programs():
                     check_eager(f"4k_p420 sharded n={n} {label}", jpeg, encode_4k())
             if want is None:
                 check_golden("4k_p420", jpeg, f"sharded n={n} {label}")
@@ -1830,7 +1832,7 @@ def main() -> int:
         with scoped_env(env):
             out = run_sharded(f"batch_1080p_p420 n=2 on one card, {arm}", sharded_batch, expect,
                               {k: v for k, v in replayed.items() if v})
-            with eager_sharded():
+            with eager_programs():
                 check_eager(f"batch_1080p_p420 n=2 {arm}", out, sharded_batch())
         if [sha256(j) for j in out] != want:
             raise AssertionError(f"batch_1080p_p420 n=2 {arm}: cuda JPEGs differ from the JAX goldens")
@@ -1973,10 +1975,10 @@ def main() -> int:
         padded[: four_k.shape[0], : four_k.shape[1]] = dpx
         pool = sharding._compiled_sharded_onedispatch(
             *four_k.shape[:2], cfg4.chroma_subsampling, cfg4.dct_variant, n,
-            *onedispatch.program_key(four_k, 255, lq4, cq4, devs[0]))
+            *programs.program_key(four_k, 255, lq4, cq4, devs[0]))
 
         def arm_ctx(arm):
-            return eager_sharded() if arm == "eager" else contextlib.nullcontext()
+            return eager_programs() if arm == "eager" else contextlib.nullcontext()
 
         def start(arm):
             with arm_ctx(arm):
@@ -2038,11 +2040,11 @@ def main() -> int:
             rate = "" if k.startswith("host") else f", {mp / med * 1e3:.1f} Mpix/s"
             log(f"{what} sharded n={n} on one card, {k}: median {med:.4f} ms "
                 f"({min(v):.4f}-{max(v):.4f}) of {len(v)}{rate} on {gpu}")
-        slab_pool = [p for p in onedispatch._POOLS if p.idle and p.idle[0].kind == "sharded_onedispatch_slab"]
+        slab_pool = [p for p in programs.POOLS if p.idle and p.idle[0].kind == "sharded_onedispatch_slab"]
         log(f"4k_p420 sharded n={n}: one instance's graph pool "
             f"{max((p.bytes for p in pool.idle), default=0)} bytes, {len(pool.idle)} instances idle; "
             f"sharded slab instances {sorted(p.idle[0].bytes for p in slab_pool)} bytes")
-    log(f"all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda.memory_reserved "
+    log(f"all captured instances {programs.graph_bytes()} bytes; torch.cuda.memory_reserved "
         f"{torch.cuda.memory_reserved(dev)} bytes after phase 5; graph replays so far "
         f"{json.dumps(replays)}")
 
@@ -2052,8 +2054,7 @@ def main() -> int:
     # _compiled_pipeline_batch; bitstream/device_pack's _compiled_fused_pack,
     # _compiled_pack and _compiled_pack_batch; parallel/sharding's
     # _compiled_sharded and _compiled_shard_pack): every JPEG against the
-    # eager enqueue's (pipeline.program_card naming no card; for the
-    # sharded encode, eager_sharded) and its golden
+    # eager enqueue's (eager_programs) and its golden
     from dmmt_jpeg_encoder_tpu_torch import pipeline
     from dmmt_jpeg_encoder_tpu_torch.bitstream import device_pack
     from dmmt_jpeg_encoder_tpu_torch.utils.device import upload
@@ -2061,16 +2062,6 @@ def main() -> int:
     t_phase = time.perf_counter()
     two_kinds = ("pipeline", "pipeline_batch", "fused_pack", "pack", "pack_batch", "sharded",
                  "shard_pack")
-
-    @contextlib.contextmanager
-    def eager_two_dispatch():
-        """The two-dispatch halves enqueue op by op, in place of a replay."""
-        real = pipeline.program_card
-        pipeline.program_card = lambda pixels, device: None
-        try:
-            yield
-        finally:
-            pipeline.program_card = real
 
     @contextlib.contextmanager
     def lowered_bound(symbols: int):
@@ -2082,7 +2073,7 @@ def main() -> int:
         finally:
             onedispatch.MAX_DEVICE_TABLE_SYMBOLS = saved
 
-    def replay_against_eager(label, fn, expect, replayed, want, eager_ctx=eager_two_dispatch,
+    def replay_against_eager(label, fn, expect, replayed, want, eager_ctx=eager_programs,
                              run=run_path):
         graph = run(label, fn, expect, replayed)
         with eager_ctx():
@@ -2127,7 +2118,7 @@ def main() -> int:
                 f"4k_p420 sharded two-dispatch n=2 on one card, {label}, replay",
                 lambda: port.encode_array(four_k, 255, cfg2, device=on_card(2)), expect,
                 {"sharded": 1, "shard_pack": 1}, [goldens["4k_p420"]["jpeg_sha256"]],
-                eager_ctx=eager_sharded, run=run_sharded)
+                eager_ctx=eager_programs, run=run_sharded)
         n_two += 1
     log(f"two-dispatch programs: {n_two} replayed paths (every fixture one_dispatch=off; the 4K "
         "frame with the fused pack, the staged pack, DMMT_HIST=pallas and the host scan backend; "
@@ -2241,11 +2232,11 @@ def main() -> int:
     packs = {"fused": {}, "staged": {"DMMT_NO_FUSED_PACK": "1"}}
     timed = {
         **{f"e2e {p}": (lambda p=p: port.encode_array(four_k, 255, off4, device=dev), packs[p],
-                        eager_two_dispatch, mpix4) for p in packs},
-        "fused_batch 16 x 1080p": (fused16, {}, eager_two_dispatch,
+                        eager_programs, mpix4) for p in packs},
+        "fused_batch 16 x 1080p": (fused16, {}, eager_programs,
                                    f16["n"] * f16["height"] * f16["width"] / 1e6),
         **{f"sharded n=2 {label}": (lambda: port.encode_array(four_k, 255, cfg2, device=on_card(2)),
-                                    env, eager_sharded, mpix4)
+                                    env, eager_programs, mpix4)
            for label, env, _, _ in sharded_two},
     }
     bounds_of = {f"sharded n=2 {label}": symbols for label, _, symbols, _ in sharded_two}
@@ -2277,10 +2268,10 @@ def main() -> int:
         rate = f", {mp_of[base] / med * 1e3:.1f} Mpix/s" if base in mp_of else ""
         log(f"two-dispatch {k}: median {med:.4f} ms ({min(v):.4f}-{max(v):.4f}) of {len(v)}{rate} "
             f"on {gpu}")
-    instances = sorted((p.idle[0].kind, p.idle[0].bytes, len(p.idle)) for p in list(onedispatch._POOLS)
+    instances = sorted((p.idle[0].kind, p.idle[0].bytes, len(p.idle)) for p in list(programs.POOLS)
                        if p.idle and p.idle[0].kind in two_kinds)
     log("two-dispatch programs' instances (kind, graph pool bytes, idle instances): "
-        f"{instances}; all captured instances {onedispatch.graph_bytes()} bytes; torch.cuda."
+        f"{instances}; all captured instances {programs.graph_bytes()} bytes; torch.cuda."
         f"memory_reserved {torch.cuda.memory_reserved(dev)} bytes; graph replays so far "
         f"{json.dumps(replays)}; phase {time.perf_counter() - t_phase:.1f} s")
 

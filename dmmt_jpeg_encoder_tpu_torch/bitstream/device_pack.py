@@ -32,14 +32,16 @@ Counterpart of dmmt_jpeg_encoder_tpu.bitstream.device_pack:
   `pack_enqueue`, which the CPU runs eagerly: the blocks are copied into
   the program's inputs, the host tables and word bases (`pack_values`)
   through its pinned staging, and the instance is given back after the
-  word fetch. The staged packs' word buffers are the JAX package's
-  power-of-two bucket (`words_capacity`), so one program serves many
-  streams; the fused pack keeps the worst case of the shape.
+  word fetch (programs.run_once). The staged packs' word buffers are the
+  JAX package's power-of-two bucket (`words_capacity`), so one program
+  serves many streams; the fused pack keeps the worst case of the shape.
 - `finalize_scan_bytes` / `pad_and_stuff` / `exact_scan_bits`: host
-  numpy. The fused pack stuffs on the device behind the scan-pack kernel
-  (bitstream/scan_stuff.py), and its read fetches final bytes; the host
-  stuffs the staged packs' streams, the fused batch's and the sharded
-  tail's, and a fused pack's where its word buffer's tail had no room.
+  numpy; `check_scan_bits` holds a pack's bit count to exact_scan_bits
+  under DMMT_CHECK_BITS. The fused pack stuffs on the device behind the
+  scan-pack kernel (bitstream/scan_stuff.py), and its read fetches final
+  bytes; the host stuffs the staged packs' streams, the fused batch's and
+  the sharded tail's, and a fused pack's where its word buffer's tail had
+  no room.
 
 Table lookups assume every symbol present in the data has a codeword,
 which holds when the tables were built from this image's own histograms.
@@ -53,6 +55,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import programs
 from ..entropy.categorize import magnitude_category, running_max, running_sum
 from ..ops.lookup import table_lookup_grouped, table_lookup_grouped_plain
 from ..utils.capability import mode_keyed_cache
@@ -375,7 +378,7 @@ def chroma_index(n_scan: int, stride: int, luma_per_mcu: int, device) -> torch.T
     return (idx % stride >= luma_per_mcu).to(torch.int32)
 
 
-def _use_fused_pack() -> bool:
+def use_fused_pack() -> bool:
     """The one-call scan-pack kernel (default), or with DMMT_NO_FUSED_PACK
     set the staged route: block_emissions (lookup kernel), the
     emission-pack kernel, byteswap_words."""
@@ -503,18 +506,16 @@ def _pack_pool(kind: str, n_images: int, n_luma: int, n_chroma: int, luma_per_mc
     """A pool of one pack program: inputs luma [B, NL, 64], cb and cr
     [B, NC, 64] (int16), pack_values' vector and its host staging;
     pack_enqueue over them."""
-    from ..onedispatch import HostStaging, _pool
-
     n_values = n_images * (2 * 4 * 256 + 1)
     shapes = ((n_images, n_luma, 64), (n_images, n_chroma, 64), (n_images, n_chroma, 64),
               (n_values,), (n_values,))
-    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, HostStaging(torch.int32))
+    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, programs.HostStaging(torch.int32))
 
     def enqueue(inputs, _state):
         luma, cb, cr, values, _ = inputs
         return [pack_enqueue(luma, cb, cr, luma_per_mcu, values, n_words, fused)]
 
-    return _pool(kind, shapes, dtypes, device, enqueue, _fill_pack)
+    return programs.pool(kind, shapes, dtypes, device, enqueue, _fill_pack)
 
 
 @mode_keyed_cache(maxsize=64)
@@ -556,11 +557,7 @@ def _checked_bytes(known_bits: int):
 
     def read(words: torch.Tensor, total_bits: torch.Tensor,
              stuffed: torch.Tensor | None = None) -> bytes:
-        if check_bits_enabled() and int(total_bits.sum()) != known_bits:
-            raise AssertionError(
-                f"device packed {int(total_bits.sum())} scan bits but the histograms "
-                f"predict {known_bits}"
-            )
+        check_scan_bits(total_bits, known_bits, "device pack")
         with span("dmmt.pack_wait"):
             if words.device.type == "cuda":
                 torch.cuda.current_stream(words.device).synchronize()
@@ -592,25 +589,21 @@ def device_pack_scan(
     set, the packed bit count is checked against it first. On a card: one
     replay of the program (_compiled_fused_pack or _compiled_pack), whose
     instance is given back after the fetch; on the CPU: pack_enqueue."""
-    from ..pipeline import program_card
-
     n_luma, n_chroma = int(luma.shape[0]), int(cb.shape[0])
-    fused = _use_fused_pack()
+    fused = use_fused_pack()
     if fused:
         n_words = (n_luma + 2 * n_chroma) * (MAX_BLOCK_BITS // 32) + 2
     else:
         n_words = words_capacity((known_bits + 31) // 32 + 2)
     values = pack_values([(ldc, lac, cdc, cac)], [0])
     read = _checked_bytes(known_bits)
-    card = program_card(luma, luma.device)
+    card = programs.card(luma, luma.device)
     if card is None:
         return read(*pack_enqueue(luma[None], cb[None], cr[None], luma_per_mcu,
                                   upload(values, luma.device), n_words, fused))
-    from ..onedispatch import _run_once
-
     cache = _compiled_fused_pack if fused else _compiled_pack
     pool = cache(n_luma, n_chroma, luma_per_mcu, n_words, card)
-    return _run_once(pool, (luma, cb, cr, values), read)
+    return programs.run_once(pool, (luma, cb, cr, values), read)
 
 
 def device_pack_scan_batch(
@@ -628,8 +621,6 @@ def device_pack_scan_batch(
     first total_words words returns all streams; the word buffer is the
     JAX package's bucket of total_words + B. On a card: one replay of the
     program (_compiled_pack_batch); on the CPU: pack_enqueue."""
-    from ..pipeline import program_card
-
     b, n_luma = (int(x) for x in luma.shape[:2])
     n_chroma = int(cb.shape[1])
     n_words = [(bits + 31) // 32 for bits in bits_per_image]
@@ -645,14 +636,12 @@ def device_pack_scan_batch(
             for off, n, bits in zip(word_off, n_words, bits_per_image)
         ]
 
-    card = program_card(luma, luma.device)
+    card = programs.card(luma, luma.device)
     if card is None:
         return read(*pack_enqueue(luma, cb, cr, luma_per_mcu, upload(values, luma.device),
                                   words_cap))
-    from ..onedispatch import _run_once
-
     pool = _compiled_pack_batch(b, n_luma, n_chroma, luma_per_mcu, words_cap, card)
-    return _run_once(pool, (luma, cb, cr, values), read)
+    return programs.run_once(pool, (luma, cb, cr, values), read)
 
 
 def scan_fetch_slice(words: torch.Tensor, total_bits: int, stuffed: int) -> torch.Tensor:
@@ -711,7 +700,9 @@ def exact_scan_bits(
 ) -> int:
     """EXACT total scan bit count from symbol histograms + code lengths:
     every DC/AC symbol contributes its codeword length plus its category's
-    extra bits (the symbol itself for DC, its low nibble for AC)."""
+    extra bits (the symbol itself for DC, its low nibble for AC). The count
+    is linear in the histograms, so histograms with leading axes (one row
+    per shard) give the count of their sum."""
     ldc_h, lac_h, cdc_h, cac_h = (np.asarray(h, dtype=np.int64) for h in hists)
     cats16 = np.arange(16, dtype=np.int64)
     extra256 = np.arange(256, dtype=np.int64) & 15
@@ -720,3 +711,23 @@ def exact_scan_bits(
     total += int((cdc_h * (np.asarray(cdc[1], np.int64)[:16] + cats16)).sum())
     total += int((cac_h * (np.asarray(cac[1], np.int64) + extra256)).sum())
     return total
+
+
+def check_scan_bits(packed, predicted, what: str) -> None:
+    """With DMMT_CHECK_BITS set (check_bits_enabled), AssertionError unless
+    a pack's bit count equals the histograms' prediction. `packed`: an int,
+    or a tensor of counts, summed; `predicted`: the exact count, or
+    (histograms, tables) for exact_scan_bits of the four histograms (host
+    or device) with the tables' flat code arrays (HuffmanTables.flat).
+    Nothing is read from the device when the check is off."""
+    if not check_bits_enabled():
+        return
+    if isinstance(predicted, tuple):
+        hists, tables = predicted
+        predicted = exact_scan_bits(
+            tuple(h.cpu().numpy() if isinstance(h, torch.Tensor) else h for h in hists),
+            *tables.flat())
+    packed = int(packed.sum()) if isinstance(packed, torch.Tensor) else int(packed)
+    if packed != predicted:
+        raise AssertionError(f"{what}: {packed} bits packed, but the histograms predict "
+                             f"{predicted}")

@@ -7,7 +7,8 @@ scan_backend="host" and for images past the device table build's
 exactness bound: the device phase
 (pipeline.run_device_pipeline), one fetch of the four histograms and the
 host package-merge tables (HuffmanTables.from_histograms), then the device
-pack or the host C/Python packer (pack_scan). On a card each device half
+pack or the host C/Python packer (pack_scan). HuffmanTables lives in
+huffman/tables.py and is re-exported here. On a card each device half
 of the two-dispatch encode is one replay of a captured program
 (pipeline.py, bitstream/device_pack.py), as each one-dispatch start is
 (onedispatch.py); a first half's result holds its program until it is
@@ -31,41 +32,35 @@ one per shard, which may repeat a device (parallel.sharding.shard_devices).
 Every DCT variant and DMMT_P1 phase-1 route runs (pipeline.zigzag_blocks),
 the mxu and fused1 routes at either DMMT_P1_PREC (ops/mxu_dct).
 
-Under torch.profiler the host steps here and in onedispatch.py show as
-`dmmt.` ranges (utils/profiling.span): the staging ring's wait, fill and
-enqueue, the program's lookup, lease, fill and replay, the finish's
-bit-count wait, spec decode, word fetch, stuffing (`dmmt.stuff`, with
-`dmmt.stuff_card` inside where the scan came stuffed from the card and
-`dmmt.stuff_host` where the host stuffed it) and release, and the
-container. The two-dispatch tail has its own: the wait for the first half
-and the histograms' copy (`dmmt.hist_wait`), the host tables and the
-stream's exact length (`dmmt.host_tables`), then in the pack's read
+Under torch.profiler the host steps here, in onedispatch.py and in
+programs.py show as `dmmt.` ranges (utils/profiling.span): the staging
+ring's wait, fill and enqueue, the program's lookup, lease, fill and
+replay, the finish's bit-count wait, spec decode, word fetch, stuffing
+(`dmmt.stuff`, with `dmmt.stuff_card` inside where the scan came stuffed
+from the card and `dmmt.stuff_host` where the host stuffed it) and
+release, and the container. The two-dispatch tail has its own: the wait
+for the first half and the histograms' copy (`dmmt.hist_wait`), the host
+tables and the stream's exact length (`dmmt.host_tables`; both in
+HuffmanTables.from_histograms), then in the pack's read
 (bitstream/device_pack.py) the wait for the pack (`dmmt.pack_wait`), the
 word fetch and the stuffing (`dmmt.word_fetch`, `dmmt.stuff`, named as in
-the one-dispatch finish). The benchmark's `bmng21600_p420.tile` cell
-reads them: its 21600x21600 tiles are past the device table bound.
+the one-dispatch finish). The benchmark's `bmng21600_p420.tile` cell reads
+them: its 21600x21600 tiles are past the device table bound.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from .bitstream.device_pack import (
-    N_SLOTS,
-    device_pack_scan,
-    device_pack_scan_batch,
-    exact_scan_bits,
-)
+from .bitstream.device_pack import N_SLOTS, device_pack_scan, device_pack_scan_batch
 from .bitstream.packer import encode_scan
 from .config import EncoderConfig
 from .container import assemble_jpeg
-from .huffman.canonical import flat_code_arrays
-from .huffman.spec import SymbolCodeLength, code_lengths_from_histogram
+from .huffman.tables import HuffmanTables, split_histograms
 from .io.ppm import PPMImage, read_ppm, read_ppm_bytes
 from .ops.geometry import padded_size
 from .onedispatch import (
@@ -74,14 +69,13 @@ from .onedispatch import (
     finish_one_dispatch,
     one_dispatch_supported,
     prefetch_one_dispatch,
-    side_streams,
     slab_max_blocks,
     start_one_dispatch,
     start_one_dispatch_slab,
 )
 from .pipeline import DeviceEncodeResult, run_device_pipeline, run_device_pipeline_batch
 from .tables import quantization_table_pair
-from .utils.device import narrow_pixels
+from .utils.device import narrow_pixels, side_streams
 from .utils.profiling import span
 
 # Default slab depth, from the H100 sweep in PERF.md (depth x rows, P420,
@@ -98,61 +92,6 @@ SLAB_B = 16
 # compiler, which has no counterpart here.
 FUSED_BYTES_PER_BLOCK = 3 * N_SLOTS * 4 + WORD_BYTES_PER_BLOCK
 FUSED_MAX_BYTES = 1 << 30
-
-
-@dataclass
-class HuffmanTables:
-    """The four per-image code-length lists (descending length order),
-    the OutputImage fields of the reference (src/image/writer/jpeg.rs:77-88)."""
-
-    luma_dc: list[SymbolCodeLength]
-    luma_ac: list[SymbolCodeLength]
-    chroma_dc: list[SymbolCodeLength]
-    chroma_ac: list[SymbolCodeLength]
-    # the exact scan length these tables give the histograms they were built
-    # from (from_host_histograms; None for tables decoded from a device spec)
-    scan_bits: int | None = field(default=None, init=False, compare=False)
-    _flat: tuple | None = field(default=None, init=False, repr=False, compare=False)
-
-    @classmethod
-    def from_histograms(cls, result: DeviceEncodeResult) -> "HuffmanTables":
-        """Tables from a first half's histograms: the wait for the first half
-        and the histograms' one copy (dmmt.hist_wait), then
-        from_host_histograms (dmmt.host_tables)."""
-        with span("dmmt.hist_wait"):
-            _materialize_histograms(result)
-        with span("dmmt.host_tables"):
-            return cls.from_host_histograms(result.luma_dc_hist, result.luma_ac_hist,
-                                            result.chroma_dc_hist, result.chroma_ac_hist)
-
-    @classmethod
-    def from_host_histograms(cls, luma_dc, luma_ac, chroma_dc, chroma_ac) -> "HuffmanTables":
-        """Package-merge tables from four host (numpy) histograms, with their
-        canonical codes (flat) and the exact scan length they give."""
-        hists = (luma_dc, luma_ac, chroma_dc, chroma_ac)
-        tables = cls(*(code_lengths_from_histogram(h) for h in hists))
-        tables.scan_bits = exact_scan_bits(hists, *tables.flat())
-        return tables
-
-    def flat(self) -> tuple:
-        """(codes[256], lens[256]) arrays of the four tables
-        (flat_code_arrays), luma DC first; made once."""
-        if self._flat is None:
-            self._flat = tuple(flat_code_arrays(t) for t in (self.luma_dc, self.luma_ac,
-                                                             self.chroma_dc, self.chroma_ac))
-        return self._flat
-
-
-def _materialize_histograms(result: DeviceEncodeResult) -> None:
-    """Fetch all four histograms in ONE device->host copy (four fetches
-    would each wait for the device) and keep them as numpy on the result."""
-    if isinstance(result.luma_dc_hist, np.ndarray):
-        return
-    hists = (result.luma_dc_hist, result.luma_ac_hist, result.chroma_dc_hist,
-             result.chroma_ac_hist)
-    host = torch.cat([h.reshape(-1) for h in hists]).cpu().numpy()
-    (result.luma_dc_hist, result.luma_ac_hist, result.chroma_dc_hist,
-     result.chroma_ac_hist) = np.split(host, [16, 272, 288])
 
 
 def _resolve_backend(config: EncoderConfig) -> str:
@@ -508,7 +447,7 @@ def _encode_batch_fused(
     host = torch.cat(hists, dim=1).cpu().numpy()  # [B, 16 + 256 + 16 + 256]
     tables_list, flats, bits = [], [], []
     for row in host:
-        tables = HuffmanTables.from_host_histograms(*np.split(row, [16, 272, 288]))
+        tables = HuffmanTables.from_host_histograms(*split_histograms(row))
         tables_list.append(tables)
         flats.append(tables.flat())
         bits.append(tables.scan_bits)

@@ -17,9 +17,8 @@ JAX reference) and `-prec-div=true` (IEEE division); never
 Every C entry point takes PyTorch's current stream and returns
 `cudaGetLastError()` after its launches; `check` raises on a nonzero
 code. Each kernel wrapper adds one to its count in `LAUNCHES` where it
-launches its kernel, and nowhere else. A captured program (onedispatch.py's
-_Program: the one-dispatch starts, the sharded ones of
-parallel/sharding.py, the two-dispatch halves) launches its kernels when
+launches its kernel, and nowhere else. A captured program (programs.py's
+Program, which runs every program of the port) launches its kernels when
 its CUDA graph replays, not where its wrappers ran: it keeps the counts
 its capture added, adds them again on every replay, and adds one to its
 kind's count in `REPLAYS`.

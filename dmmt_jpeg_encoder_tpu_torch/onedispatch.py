@@ -2,10 +2,11 @@
 
 Counterpart of dmmt_jpeg_encoder_tpu.onedispatch (`start_one_dispatch`,
 `start_one_dispatch_slab`, `start_one_dispatch_multi`,
-`slab_onepack_enabled`, `prefetch_one_dispatch`, `finish_one_dispatch`,
-`tables_from_spec`). The start functions take interleaved or
-channel-planar samples, as the JAX package's do. `start_one_dispatch`
-enqueues the whole encode on the device stream without waiting:
+`slab_onepack_enabled`, `prefetch_one_dispatch`, `finish_one_dispatch`;
+its `tables_from_spec` is huffman/tables.py's). The start functions take
+interleaved or channel-planar samples, as the JAX package's do.
+`start_one_dispatch` enqueues the whole encode on the device stream
+without waiting:
 
     phase 1 (normalize, color, subsample, DCT, quantize, zigzag, P420
     entangle: the kernel pipeline.zigzag_blocks routes to) -> DC DPCM ->
@@ -28,35 +29,16 @@ runs B same-geometry images one single-image encode after another.
 One program per start. The JAX package compiles each of the three into
 ONE jitted program, cached by geometry and trace_mode_key()
 (`_compiled_onedispatch`, `_compiled_onedispatch_slab`,
-`_compiled_onedispatch_multi`, maxsize 32, 8 and 8). On a card the port
-does the same with CUDA graphs: the caches of those names
-(utils/capability.mode_keyed_cache) hold, per key, a pool of captured
-instances of the whole enqueue above (`_enqueue`, after the interleave of
-a planar input, or the slab's row stack), each with its own static input
-and outputs. A start copies its samples into a leased instance's input
-(a host array: one pageable copy; a tensor: one device copy) and replays
-its graph: one graph launch on the current stream. The key is the JAX
-key plus what the capture bakes in besides: the device, the input dtype,
-maxval (a launch parameter) and the quantization tables' bytes (their
-device_constant pointers). A graph writes the same buffers on every
-replay, so a start leases its instance until each of its states is
-finished (finish_one_dispatch) or collected; a start that finds every
-instance leased captures another. A new instance first runs the enqueue
-once eagerly on the capture stream (builds the kernels, fills the
-device constants, touches every lazy allocation), then is captured with
-its own histogram-kernel state; neither counts as launches
-(kernels/build.py). All instances together hold at most GRAPH_MAX_BYTES
-of graph memory beyond the one being built: past it, the idle instances
-of every key are dropped, and a start raises when the leased ones alone
-hold that much. A failed capture raises; there is no eager fallback on a
-card. On the CPU the start functions run `_enqueue` eagerly (the plain
-path). The sharded programs of parallel/sharding.py and the two-dispatch
-halves (pipeline.py, bitstream/device_pack.py, parallel/sharding.py) use
-the same instances, pools and leases; an instance's static input may be a
-tuple of tensors, one of them host staging (static_input, HostStaging).
-Since a later replay overwrites a finished state's tensors, a finish keeps
-its result on the state, and a second finish returns it, as a JAX state,
-whose arrays never change, gives the same bytes again.
+`_compiled_onedispatch_multi`, maxsize 32, 8 and 8). On a card the caches
+of those names hold pools of CUDA graphs of the whole enqueue above
+(`_enqueue`, after the interleave of a planar input, or the slab's row
+stack), run by programs.py: a start copies its samples into a leased
+instance's input and replays it, and holds the lease until each of its
+states is finished (finish_one_dispatch) or collected. On the CPU the
+start functions run `_enqueue` eagerly (the plain path). Since a later
+replay overwrites a finished state's tensors, a finish keeps its result
+on the state, and a second finish returns it, as a JAX state, whose
+arrays never change, gives the same bytes again.
 
 Word buffers are sized for the worst case (64 words per block + 2), so
 buffers depend only on the image geometry; the stuffed scan and the
@@ -85,32 +67,21 @@ its host tail shows as `dmmt.hist_wait`, `dmmt.host_tables`,
 from __future__ import annotations
 
 import dataclasses
-import gc
 import os
-import threading
-import weakref
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
-from .bitstream.device_pack import (
-    check_bits_enabled,
-    exact_scan_bits,
-    interleave_scan,
-    scan_bytes,
-    scan_fetch_slice,
-)
+from . import programs
+from .bitstream.device_pack import check_scan_bits, interleave_scan, scan_bytes, scan_fetch_slice
 from .bitstream.fused_pack import fused_pack_words, fused_pack_words_slab
 from .bitstream.scan_stuff import stuff_scan
 from .config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
 from .entropy.categorize import symbol_histograms
-from .huffman.canonical import flat_code_arrays
 from .huffman.device_tables import device_code_tables_batched, pad_dc_histogram
-from .huffman.spec import SymbolCodeLength
-from .kernels import build
-from .ops.block_hist import new_state
+from .huffman.tables import tables_from_spec
 from .ops.geometry import padded_size
 from .pipeline import (
     image_layout,
@@ -119,8 +90,9 @@ from .pipeline import (
     stacked_rows,
     zigzag_blocks,
 )
+from .programs import graph_bytes  # noqa: F401 (the benchmark reads it here)
 from .utils.capability import mode_keyed_cache
-from .utils.device import as_device, narrow_pixels, on_device
+from .utils.device import as_device, pinned_copy, side_streams
 from .utils.profiling import span
 
 # Worst-case symbol-total bound for exact device table tie-breaking.
@@ -131,11 +103,6 @@ WORD_BYTES_PER_BLOCK = 64 * 4
 # hold at most this many bytes (DMMT_SLAB_MAX_BLOCKS overrides the block
 # count it implies). 16 1080p P420 frames need 200.5 MB.
 SLAB_MAX_WORD_BYTES = 1 << 30
-# Graph memory of all captured instances (each its pool's bytes, as
-# measured at capture) beyond the one being built. A single-image 4K P420
-# instance holds 132 MB on an H100; a slab instance grows with its group,
-# whose worst-case words alone may reach SLAB_MAX_WORD_BYTES.
-GRAPH_MAX_BYTES = 16 << 30
 
 
 @dataclass
@@ -157,19 +124,6 @@ class OneDispatchState:
     # gives the start's program instance back (a weakref.finalize: runs once,
     # at finish_one_dispatch or when the state is collected); None on the CPU
     release: Callable | None = dataclasses.field(default=None, repr=False, compare=False)
-
-
-_SIDE_STREAMS: dict[int, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
-
-
-def side_streams(device: torch.device) -> tuple[torch.cuda.Stream, torch.cuda.Stream]:
-    """(upload, fetch) streams of a CUDA device, made once: host->device
-    uploads and device->host word fetches each run on their own stream,
-    beside the compute (current) stream."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SIDE_STREAMS:
-        _SIDE_STREAMS[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
-    return _SIDE_STREAMS[index]
 
 
 def blocks_per_image(height: int, width: int, preset: ChromaSubsamplingPreset) -> int:
@@ -208,44 +162,6 @@ def _require_supported(height: int, width: int, preset: ChromaSubsamplingPreset)
         )
 
 
-def _target(pixels: np.ndarray | torch.Tensor, device: torch.device | str) -> torch.device:
-    """Where an encode runs: a tensor where it lies, a host array on
-    `device` (a card with its index)."""
-    dev = pixels.device if isinstance(pixels, torch.Tensor) else torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def copy_in(target: torch.Tensor, pixels: np.ndarray | torch.Tensor, maxval: int) -> None:
-    """Copy samples into a program's input (or a window of it): a host
-    array with one pageable copy, a tensor with one device copy."""
-    if not isinstance(pixels, torch.Tensor):
-        pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
-    target.copy_(pixels)
-
-
-def _table_key(q: np.ndarray) -> tuple:
-    q = np.ascontiguousarray(q)
-    return q.dtype.str, q.shape, q.tobytes()
-
-
-def _table(key: tuple) -> np.ndarray:
-    dtype, shape, raw = key
-    return np.frombuffer(raw, dtype=dtype).reshape(shape)
-
-
-def program_key(pixels, maxval: int, luma_q: np.ndarray, chroma_q: np.ndarray,
-                device: torch.device) -> tuple:
-    """What a capture bakes in beyond the JAX package's key: the device, the
-    input dtype, maxval and the quantization tables' bytes."""
-    if isinstance(pixels, torch.Tensor):
-        dtype = pixels.dtype
-    else:
-        dtype = torch.from_numpy(narrow_pixels(np.asarray(pixels[:0]), maxval)).dtype
-    return device, dtype, int(maxval), _table_key(luma_q), _table_key(chroma_q)
-
-
 def start_one_dispatch(
     pixels: np.ndarray | torch.Tensor,
     maxval: int,
@@ -260,15 +176,16 @@ def start_one_dispatch(
     (_compiled_onedispatch); on the CPU: `_enqueue`."""
     planar, height, width = image_layout(pixels.shape)
     _require_supported(height, width, config.chroma_subsampling)
-    dev = _target(pixels, device)
-    if dev.type == "cuda":
+    card = programs.card(pixels, device)
+    if card is not None:
         with span("dmmt.lookup"):
             pool = _compiled_onedispatch(height, width, config.chroma_subsampling,
                                          config.dct_variant, planar,
-                                         *program_key(pixels, maxval, luma_q, chroma_q, dev))
-        return _start(pool, pixels, maxval)[0]
+                                         *programs.program_key(pixels, maxval, luma_q, chroma_q,
+                                                               card))
+        return programs.start(pool, pixels, maxval)[0]
     with span("dmmt.fill"):
-        pixels = as_device(pixels, maxval, dev)
+        pixels = as_device(pixels, maxval, device)
     rgb = interleaved(pixels, planar)
     return _enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
 
@@ -301,14 +218,15 @@ def start_one_dispatch_slab(
             f"exceeds the {limit}-block group bound (DMMT_SLAB_MAX_BLOCKS); split the group"
         )
     stack = mcu_padded_stack(pixels_stack, maxval, preset)
-    dev = _target(stack, device)
-    if dev.type == "cuda":
+    card = programs.card(stack, device)
+    if card is not None:
         with span("dmmt.lookup"):
             pool = _compiled_onedispatch_slab(b, height, width, preset, config.dct_variant, planar,
-                                              *program_key(stack, maxval, luma_q, chroma_q, dev))
-        return _start(pool, stack, maxval)
+                                              *programs.program_key(stack, maxval, luma_q, chroma_q,
+                                                                    card))
+        return programs.start(pool, stack, maxval)
     with span("dmmt.fill"):
-        stack = as_device(stack, maxval, dev)
+        stack = as_device(stack, maxval, device)
     rgb = stacked_rows(stack, planar)
     return _enqueue(rgb, b, maxval, config, luma_q, chroma_q, onepack=slab_onepack_enabled())
 
@@ -331,20 +249,20 @@ def start_one_dispatch_multi(
     per call; each state finishes with finish_one_dispatch to the bytes of
     a standalone start_one_dispatch. The JAX package's
     DMMT_MULTI_MAX_BLOCKS cap bounds the size of one TPU program for its
-    compiler; a CUDA graph needs no such cap, and GRAPH_MAX_BYTES bounds
-    the graphs' memory."""
+    compiler; a CUDA graph needs no such cap, and programs.GRAPH_MAX_BYTES
+    bounds the graphs' memory."""
     b = int(pixels_stack.shape[0])
     planar, height, width = image_layout(pixels_stack.shape[1:])
     _require_supported(height, width, config.chroma_subsampling)
-    dev = _target(pixels_stack, device)
-    if dev.type == "cuda":
+    card = programs.card(pixels_stack, device)
+    if card is not None:
         with span("dmmt.lookup"):
             pool = _compiled_onedispatch_multi(b, height, width, config.chroma_subsampling,
                                                config.dct_variant, planar,
-                                               *program_key(pixels_stack, maxval, luma_q, chroma_q,
-                                                            dev))
-        return _start(pool, pixels_stack, maxval)
-    stack = interleaved(as_device(pixels_stack, maxval, dev), planar)
+                                               *programs.program_key(pixels_stack, maxval, luma_q,
+                                                                     chroma_q, card))
+        return programs.start(pool, pixels_stack, maxval)
+    stack = interleaved(as_device(pixels_stack, maxval, device), planar)
     return [_enqueue(rgb, 1, maxval, config, luma_q, chroma_q, onepack=False)[0]
             for rgb in stack.unbind(0)]
 
@@ -427,214 +345,19 @@ def _enqueue(
     ]
 
 
-_LOCK = threading.RLock()  # pool lists; a collected state gives back from any thread
-_PROGRAMS: weakref.WeakSet = weakref.WeakSet()  # every live captured instance
-_POOLS: weakref.WeakSet = weakref.WeakSet()     # every live pool
-_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
-
-
-@dataclass(frozen=True)
-class HostStaging:
-    """The dtype of a program input that lives in host memory (pinned on a
-    card): what a fill writes on the host and copies into a device input
-    of the same instance (the packs' tables). The instance owns it, so it
-    is rewritten only by the next start that leases the instance, after
-    the previous one has waited for its outputs."""
-
-    dtype: torch.dtype
-
-
-def static_input(shape: tuple, dtype, device: torch.device):
-    """A program's static input, zeroed: a tensor of `shape` and `dtype` on
-    `device`; for a tuple of dtypes, a tuple of such tensors, one per
-    (shape, dtype) pair. A HostStaging dtype makes host memory, pinned
-    where `device` is a card."""
-    if isinstance(dtype, tuple):
-        return tuple(static_input(s, d, device) for s, d in zip(shape, dtype))
-    if isinstance(dtype, HostStaging):
-        return torch.zeros(shape, dtype=dtype.dtype, pin_memory=device.type == "cuda")
-    return torch.zeros(shape, dtype=dtype, device=device)
-
-
-def _handle(output):
-    """A replay's own handle on one output of the capture: a shallow copy
-    of a state, a new tensor object over a tensor's memory (so that its
-    collection can end a lease), anything else as it is."""
-    if isinstance(output, torch.Tensor):
-        return output.view_as(output)
-    if dataclasses.is_dataclass(output):
-        return dataclasses.replace(output)
-    return output
-
-
-class _Program:
-    """One captured instance of a program on a card (a one-dispatch start
-    here, a sharded one on one card in parallel/sharding.py, a half of the
-    two-dispatch encode in pipeline.py, bitstream/device_pack.py and
-    parallel/sharding.py): a static input (zeroed once; a tuple of them
-    where `dtype` is a tuple, static_input), the CUDA graph of
-    `enqueue(input, state)`, the outputs its capture returned (states,
-    tensors or tuples of them: the graph's outputs), the launch counts the
-    capture added, and the bytes its memory pool holds. `fill(input,
-    pixels, maxval)` writes a call's data into the input (default copy_in:
-    all of it)."""
-
-    def __init__(self, kind: str, shape: tuple, dtype, device: torch.device,
-                 enqueue: Callable[[torch.Tensor, torch.Tensor | None], list],
-                 fill: Callable[[torch.Tensor, object, int], None] = copy_in):
-        self.kind, self.device, self.stream, self.fill = kind, device, None, fill
-        with torch.cuda.device(device), span("dmmt.capture"):
-            if device.index not in _CAPTURE_STREAMS:
-                _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
-            capture = _CAPTURE_STREAMS[device.index]
-            saved = build.launch_counts()
-            try:
-                self.input = static_input(shape, dtype, device)
-                capture.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(capture):
-                    enqueue(self.input, None)  # warm-up, eager
-                # the graph bakes in this state's pointer: it lives as long as the graph
-                self.hist_state = new_state(device)
-                torch.cuda.synchronize(device)
-                gc.collect()
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(device)
-                before = build.launch_counts()
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph, stream=capture, capture_error_mode="thread_local"):
-                    self.states = enqueue(self.input, self.hist_state)
-                after = build.launch_counts()
-            finally:
-                build.LAUNCHES.update(saved)  # the warm-up and the capture launch for no caller
-            self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-            self.bytes = torch.cuda.memory_reserved(device) - reserved
-        _PROGRAMS.add(self)
-
-    def run(self, pixels, maxval: int) -> list:
-        """Fill the input and replay, on the current stream (after the
-        stream of the last replay, when it is another one); one _handle per
-        output of the capture."""
-        with on_device(self.device):
-            stream = torch.cuda.current_stream(self.device)
-            if self.stream is not None and self.stream != stream:
-                stream.wait_stream(self.stream)
-            with span("dmmt.fill"):
-                self.fill(self.input, pixels, maxval)
-            with span("dmmt.replay"):
-                self.graph.replay()
-            self.stream = stream
-        for k, n in self.launches.items():
-            build.LAUNCHES[k] += n
-        build.REPLAYS[self.kind] += 1
-        return [_handle(state) for state in self.states]
-
-
-def graph_bytes() -> int:
-    """Graph memory held by the live captured instances."""
-    return sum(p.bytes for p in list(_PROGRAMS))
-
-
-def _make_room() -> None:
-    """Keep the instances within GRAPH_MAX_BYTES before another is built:
-    drop every idle one when they hold that much, and raise when the
-    leased ones alone do."""
-    if graph_bytes() < GRAPH_MAX_BYTES:
-        return
-    with span("dmmt.evict"):
-        with _LOCK:
-            for pool in list(_POOLS):
-                pool.idle.clear()
-        gc.collect()
-    if graph_bytes() >= GRAPH_MAX_BYTES:
-        raise RuntimeError(
-            f"captured programs in use hold {graph_bytes()} bytes of graph memory, at least "
-            f"GRAPH_MAX_BYTES ({GRAPH_MAX_BYTES}); finish or drop started states first")
-
-
-class _Pool:
-    """The captured instances of one program key: the idle ones, and
-    `make` to capture another when every instance is leased."""
-
-    def __init__(self, make: Callable[[], _Program]):
-        self.make = make
-        self.idle: list[_Program] = []
-        _POOLS.add(self)
-
-    def lease(self) -> _Program:
-        with span("dmmt.lease"):
-            with _LOCK:
-                if self.idle:
-                    return self.idle.pop()
-            _make_room()
-            return self.make()
-
-    def give_back(self, program: _Program) -> None:
-        with _LOCK:
-            self.idle.append(program)
-
-
-class _Lease:
-    """One start's hold on its instance, given back when the last of the
-    start's states is finished or collected."""
-
-    def __init__(self, pool: _Pool, program: _Program, n_states: int):
-        self.pool, self.program, self.left = pool, program, n_states
-
-    def release_one(self) -> None:
-        with _LOCK:
-            self.left -= 1
-            if self.left == 0:
-                self.pool.give_back(self.program)
-
-
-def _start(pool: _Pool, pixels, maxval: int) -> list:
-    """Lease an instance of `pool`, run it on the samples, and tie its
-    lease to the states it returns (a state's `release`, or a tensor's
-    collection)."""
-    program = pool.lease()
-    try:
-        states = program.run(pixels, maxval)
-    except BaseException:
-        pool.give_back(program)
-        raise
-    lease = _Lease(pool, program, len(states))
-    for state in states:
-        release = weakref.finalize(state, lease.release_one)
-        if not isinstance(state, torch.Tensor):
-            state.release = release
-    return states
-
-
-def _run_once(pool: _Pool, args, read: Callable):
-    """Lease an instance of `pool`, run it on `args`, and return
-    `read(*output)` of its one output; the instance is given back once
-    `read` has waited for what it needs (nothing of it escapes)."""
-    program = pool.lease()
-    try:
-        (output,) = program.run(args, 0)
-        return read(*output)
-    finally:
-        pool.give_back(program)
-
-
-def _pool(kind: str, shape: tuple, dtype: torch.dtype, device: torch.device,
-          enqueue: Callable, fill: Callable = copy_in) -> _Pool:
-    return _Pool(lambda: _Program(kind, shape, dtype, device, enqueue, fill))
-
-
 @mode_keyed_cache(maxsize=32)
 def _compiled_onedispatch(height: int, width: int, preset: ChromaSubsamplingPreset,
                           variant: DCTVariant, planar: bool, device: torch.device,
                           dtype: torch.dtype, maxval: int, luma_key: tuple,
-                          chroma_key: tuple) -> _Pool:
+                          chroma_key: tuple) -> programs.Pool:
     """The single-image program: (the planar interleave,) `_enqueue`."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
-    lq, cq = _table(luma_key), _table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
 
     def enqueue(x, state):
         return _enqueue(interleaved(x, planar), 1, maxval, config, lq, cq, False, state)
 
-    return _pool("onedispatch", (3, height, width) if planar else (height, width, 3), dtype,
+    return programs.pool("onedispatch", (3, height, width) if planar else (height, width, 3), dtype,
                  device, enqueue)
 
 
@@ -642,11 +365,11 @@ def _compiled_onedispatch(height: int, width: int, preset: ChromaSubsamplingPres
 def _compiled_onedispatch_slab(n_images: int, height: int, width: int,
                                preset: ChromaSubsamplingPreset, variant: DCTVariant, planar: bool,
                                device: torch.device, dtype: torch.dtype, maxval: int,
-                               luma_key: tuple, chroma_key: tuple) -> _Pool:
+                               luma_key: tuple, chroma_key: tuple) -> programs.Pool:
     """The slab program over an MCU-padded stack: the row stack (with the
     planar interleave), `_enqueue` of the group."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
-    lq, cq = _table(luma_key), _table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
     onepack = slab_onepack_enabled()
     ph, pw = padded_size(height, width, preset)
 
@@ -654,39 +377,25 @@ def _compiled_onedispatch_slab(n_images: int, height: int, width: int,
         return _enqueue(stacked_rows(x, planar), n_images, maxval, config, lq, cq, onepack, state)
 
     shape = (n_images, 3, ph, pw) if planar else (n_images, ph, pw, 3)
-    return _pool("onedispatch_slab", shape, dtype, device, enqueue)
+    return programs.pool("onedispatch_slab", shape, dtype, device, enqueue)
 
 
 @mode_keyed_cache(maxsize=8)
 def _compiled_onedispatch_multi(n_images: int, height: int, width: int,
                                 preset: ChromaSubsamplingPreset, variant: DCTVariant, planar: bool,
                                 device: torch.device, dtype: torch.dtype, maxval: int,
-                                luma_key: tuple, chroma_key: tuple) -> _Pool:
+                                luma_key: tuple, chroma_key: tuple) -> programs.Pool:
     """n_images full encodes in one program: the single-image `_enqueue`
     once per image."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
-    lq, cq = _table(luma_key), _table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
 
     def enqueue(x, state):
         return [s for rgb in interleaved(x, planar).unbind(0)
                 for s in _enqueue(rgb, 1, maxval, config, lq, cq, False, state)]
 
     shape = (n_images, 3, height, width) if planar else (n_images, height, width, 3)
-    return _pool("onedispatch_multi", shape, dtype, device, enqueue)
-
-
-def tables_from_spec(spec_syms, spec_lens, spec_ns):
-    """Decode the device table spec (leaf-order symbols/lengths + present
-    counts, [4, 256] / [4]) into host HuffmanTables."""
-    from .encoder import HuffmanTables
-
-    lists = [
-        [SymbolCodeLength(int(spec_syms[t, i]), int(spec_lens[t, i])) for i in range(int(spec_ns[t]))]
-        for t in range(4)
-    ]
-    return HuffmanTables(
-        luma_dc=lists[0], luma_ac=lists[1], chroma_dc=lists[2], chroma_ac=lists[3]
-    )
+    return programs.pool("onedispatch_multi", shape, dtype, device, enqueue)
 
 
 def prefetch_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = None) -> None:
@@ -700,21 +409,8 @@ def prefetch_one_dispatch(state: OneDispatchState, config: EncoderConfig | None 
     if state.small is not None:
         return
     with span("dmmt.prefetch"):
-        small = torch.cat([
-            state.total_bits.reshape(1).to(torch.int64),
-            state.stuffed.reshape(1),
-            state.spec_ns.to(torch.int64),
-            state.spec_syms.reshape(-1).to(torch.int64),
-            state.spec_lens.reshape(-1).to(torch.int64),
-        ])
-        if small.device.type != "cuda":
-            state.small = small
-            return
-        host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
-        host.copy_(small, non_blocking=True)
-        state.small_ready = torch.cuda.Event()
-        state.small_ready.record()
-        state.small = host
+        state.small, state.small_ready = pinned_copy([
+            state.total_bits, state.stuffed, state.spec_ns, state.spec_syms, state.spec_lens])
 
 
 def _fetch(state: OneDispatchState, part: torch.Tensor) -> np.ndarray:
@@ -746,7 +442,7 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
     later finish returns the same bytes and tables, as in the JAX package.
 
     With DMMT_CHECK_BITS set, the packed bit count is cross-checked against
-    the histograms x code lengths prediction (exact_scan_bits)."""
+    the histograms x code lengths prediction (device_pack.check_scan_bits)."""
     if state.result is not None:
         return state.result
     prefetch_one_dispatch(state)
@@ -760,19 +456,7 @@ def finish_one_dispatch(state: OneDispatchState, config: EncoderConfig | None = 
     spec_lens = small[6 + 1024 :].reshape(4, 256)
     with span("dmmt.spec_decode"):
         tables = tables_from_spec(spec_syms, spec_lens, spec_ns)
-    if check_bits_enabled():
-        predicted = exact_scan_bits(
-            tuple(h.cpu().numpy() for h in state.hists),
-            flat_code_arrays(tables.luma_dc),
-            flat_code_arrays(tables.luma_ac),
-            flat_code_arrays(tables.chroma_dc),
-            flat_code_arrays(tables.chroma_ac),
-        )
-        if predicted != nbits:
-            raise AssertionError(
-                f"one-dispatch packed {nbits} bits but histograms x device "
-                f"tables predict {predicted}"
-            )
+    check_scan_bits(nbits, (state.hists, tables), "one-dispatch")
     host = _fetch(state, scan_fetch_slice(state.words, nbits, stuffed))
     state.result = scan_bytes(host, nbits, stuffed), tables
     with span("dmmt.release"):

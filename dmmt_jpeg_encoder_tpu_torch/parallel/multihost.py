@@ -130,9 +130,9 @@ def encode_array_distributed(
     sharded encode only, as the JAX package does (one_dispatch is not
     read); NotImplementedError where that does not apply
     (DMMT_NO_FUSED_PACK, an image past the device table build's bound)."""
-    from ..bitstream.device_pack import check_bits_enabled, exact_scan_bits
+    from ..bitstream.device_pack import check_scan_bits
     from ..encoder import _jpeg
-    from ..onedispatch import tables_from_spec
+    from ..huffman.tables import split_histograms, tables_from_spec
     from .sharding import (
         chain_dc,
         device_tables,
@@ -144,7 +144,6 @@ def encode_array_distributed(
         raw_blocks,
         shard_devices,
         shard_histograms,
-        split_histograms,
     )
 
     if not onedispatch_allowed(config, height, width):
@@ -193,11 +192,7 @@ def encode_array_distributed(
         return None
     table = tables_from_spec(*(tables[k].cpu().numpy() for k in ("sym_by_leaf", "len_by_leaf",
                                                                  "n_present")))
-    if check_bits_enabled():
-        predicted = exact_scan_bits(split_histograms(hists[0].cpu().numpy()), *table.flat())
-        if predicted != int(all_bits.sum()):
-            raise AssertionError(f"distributed encode packed {int(all_bits.sum())} bits but "
-                                 f"histograms x tables predict {predicted}")
+    check_scan_bits(all_bits.sum(), (split_histograms(hists[0]), table), "distributed encode")
     scan = merge_and_stuff([(segments[s, : needed[s]].view(np.uint8), int(all_bits[s]))
                             for s in range(config.num_shards)])
     return _jpeg((height, width), config, luma_q, chroma_q, scan, table)

@@ -55,21 +55,21 @@ One program per start where every shard is on one card. The JAX package
 compiles the sharded one-dispatch encode into ONE jitted program per key
 (`_compiled_sharded_onedispatch`, `_compiled_sharded_onedispatch_slab`,
 maxsize 16 and 8). The port's caches of those names hold, per key, a pool
-of CUDA graphs captured from `_enqueue` (onedispatch._Program, _Pool): a
-start copies the samples into the MCU-padded input of a leased instance
-(whose padding is zeroed once, when it is made) and replays it; the state
-holds the lease until finish_sharded_encode(_slab) or until it is
-collected. The key is the JAX key (without the multi-process program's
-`gather`) plus what onedispatch.program_key adds. The two-dispatch encode
-is two programs there, as in the JAX package: `_compiled_sharded` (16;
-`_enqueue` without the tables and packs) replayed by the start (and by
-run_sharded_pipeline), and `_compiled_shard_pack` (16; every shard's
-pack from its blocks copied in and the host tables) replayed by the
-finish. A device list that names several distinct cards keeps the
+of CUDA graphs captured from `_enqueue` (programs.py): a start copies the
+samples into the MCU-padded input of a leased instance (whose padding is
+zeroed once, when it is made) and replays it; the state holds the lease
+until finish_sharded_encode(_slab) or until it is collected. The key is
+the JAX key (without the multi-process program's `gather`) plus what
+programs.program_key adds. The two-dispatch encode is two programs there,
+as in the JAX package: `_compiled_sharded` (16; `_enqueue` without the
+tables and packs) replayed by the start (and by run_sharded_pipeline),
+and `_compiled_shard_pack` (16; every shard's pack from its blocks copied
+in and the host tables) replayed by the finish. A device list that names several distinct cards keeps the
 op-by-op enqueue: torch captures a graph on one device's stream and
 memory pool, and the DC hand-off and the histogram sum cross cards in the
-middle of the encode. The CPU runs `_enqueue` eagerly too, after the
-staging copies (upload_slabs). A failed capture raises.
+middle of the encode (programs.card decides). The CPU runs `_enqueue`
+eagerly too, after the staging copies (upload_slabs). A failed capture
+raises.
 """
 
 from __future__ import annotations
@@ -81,10 +81,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import onedispatch as od
+from .. import programs
 from ..bitstream.device_pack import (
-    _use_fused_pack,
-    check_bits_enabled,
+    check_scan_bits,
     exact_scan_bits,
     interleave_scan,
     pack_values,
@@ -92,24 +91,22 @@ from ..bitstream.device_pack import (
     stage_values,
     staged_pack_words,
     unpack_values,
+    use_fused_pack,
     words_capacity,
 )
 from ..bitstream.fused_pack import fused_pack_words, fused_pack_words_slab
 from ..config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
 from ..entropy.categorize import symbol_histograms
 from ..huffman.device_tables import device_code_tables_batched, pad_dc_histogram
+from ..huffman.tables import HuffmanTables, split_histograms, tables_from_spec
+from ..onedispatch import one_dispatch_supported, slab_max_blocks, slab_onepack_enabled
 from ..ops.block_hist import fused_block_histograms
 from ..ops.geometry import padded_size
 from ..pipeline import DeviceEncodeResult, dc_dpcm_per_image, phase1_blocks
 from ..tables import quantization_table_pair
 from ..utils import capability
 from ..utils.capability import mode_keyed_cache
-from ..utils.device import narrow_pixels, on_device, upload
-
-# one image's histograms side by side: luma DC 16, luma AC 256, chroma DC
-# 16, chroma AC 256
-HIST_SPLITS = (16, 272, 288)
-HIST_WIDTH = 544
+from ..utils.device import narrow_pixels, on_device, pinned_copy, upload
 
 
 def shard_devices(device, num_shards: int) -> list[torch.device]:
@@ -355,12 +352,12 @@ def shard_histograms(
     blocks: tuple, n_images: int, geom: Geometry, shard: int, device: torch.device,
     hist_state: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """int32 [n_images, 544] histograms (HIST_SPLITS) of one shard's
-    DPCM'd blocks, each image's over its valid prefix: the block-histogram
-    kernel with a valid count per channel (Cb and Cr apart, then added)
-    under DMMT_HIST=fused on a device that runs the kernels, else the
-    masked symbol_histograms. `hist_state`: the histogram kernels' state
-    (a captured program's own; default the stream's)."""
+    """int32 [n_images, 544] histograms (huffman/tables.HIST_SPLITS) of one
+    shard's DPCM'd blocks, each image's over its valid prefix: the
+    block-histogram kernel with a valid count per channel (Cb and Cr apart,
+    then added) under DMMT_HIST=fused on a device that runs the kernels,
+    else the masked symbol_histograms. `hist_state`: the histogram
+    kernels' state (a captured program's own; default the stream's)."""
     luma, cb, cr = blocks
     nl, nc = int(luma.shape[0]) // n_images, int(cb.shape[0]) // n_images
     rows = geom.valid_rows(shard)
@@ -391,11 +388,6 @@ def gather_histograms(hists: list[torch.Tensor], device: torch.device) -> torch.
     """The psum: every shard's [B, 544] histograms on `device`, stacked
     [n, B, 544] (their sum over shards is the image's)."""
     return torch.stack([h.to(device, non_blocking=True) for h in hists])
-
-
-def split_histograms(row) -> tuple:
-    """[..., 544] -> (luma DC, luma AC, chroma DC, chroma AC)."""
-    return tuple(row[..., a:b] for a, b in zip((0, *HIST_SPLITS), (*HIST_SPLITS, HIST_WIDTH)))
 
 
 def device_tables(global_hists: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -479,7 +471,7 @@ def onedispatch_allowed(config: EncoderConfig, height: int, width: int) -> bool:
     and DMMT_NO_ONEDISPATCH are not read: the sharded two-dispatch encode
     runs only past the bound, under DMMT_NO_FUSED_PACK, or where the
     devices do not run the kernels."""
-    return _use_fused_pack() and od.one_dispatch_supported(height, width, config.chroma_subsampling)
+    return use_fused_pack() and one_dispatch_supported(height, width, config.chroma_subsampling)
 
 
 def use_sharded_onedispatch(config: EncoderConfig, height: int, width: int,
@@ -530,26 +522,16 @@ def _start(frames: list[np.ndarray], maxval: int, config: EncoderConfig,
         luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
     slabs = upload_slabs(frames, maxval, geom, devices)
     state = _enqueue(slabs, b, maxval, config, luma_q, chroma_q, geom, devices, onedispatch,
-                     onepack=onedispatch and b > 1 and od.slab_onepack_enabled())
+                     onepack=onedispatch and b > 1 and slab_onepack_enabled())
     if onedispatch:
         _prefetch(state)
     return state
 
 
-def _program_card(pixels, devices: list[torch.device]) -> torch.device | None:
-    """The card a start (or a two-dispatch finish's pack) replays its
-    program on: every shard on that one card; None (the eager enqueue) for
-    the CPU or several distinct devices."""
-    if len(set(devices)) != 1:
-        return None
-    dev = od._target(pixels, devices[0])
-    return dev if dev.type == "cuda" else None
-
-
 def _replay(pool, pixels, maxval: int) -> ShardedState:
     """Lease an instance of `pool`, copy the samples in, replay it, and
     (one-dispatch) enqueue the small copy behind it."""
-    state = od._start(pool, pixels, maxval)[0]
+    state = programs.start(pool, pixels, maxval)[0]
     if state.kind == "onedispatch":
         _prefetch(state)
     return state
@@ -564,14 +546,14 @@ def _sharded_start(pixels: np.ndarray, maxval: int, config: EncoderConfig,
     the two-dispatch encode); otherwise `_start`, op by op."""
     if luma_q is None or chroma_q is None:
         luma_q, chroma_q = quantization_table_pair(config.quantization_preset, config.quality)
-    card = _program_card(pixels, devices)
+    card = programs.card(pixels, devices)
     if card is None:
         return _start([pixels], maxval, config, devices, onedispatch, luma_q, chroma_q)
     kernels_on(devices)  # the probe, outside any capture (the enqueue reads its result)
     cache = _compiled_sharded_onedispatch if onedispatch else _compiled_sharded
     pool = cache(int(pixels.shape[0]), int(pixels.shape[1]), config.chroma_subsampling,
                  config.dct_variant, config.num_shards,
-                 *od.program_key(pixels, maxval, luma_q, chroma_q, card))
+                 *programs.program_key(pixels, maxval, luma_q, chroma_q, card))
     return _replay(pool, pixels, maxval)
 
 
@@ -587,7 +569,7 @@ def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: in
     slab), so the padding stays black."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant, num_shards=num_shards)
     geom = Geometry.of(height, width, preset, num_shards)
-    lq, cq = od._table(luma_key), od._table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
 
     def enqueue(x, state):
         return [_enqueue(shard_slabs(x, geom), n_images, maxval, config, lq, cq, geom,
@@ -595,12 +577,12 @@ def _sharded_pool(kind: str, shape: tuple, n_images: int, height: int, width: in
 
     def fill(x, pixels, maxval):
         if len(shape) == 3:
-            od.copy_in(x[:height, :width], pixels, maxval)
+            programs.copy_in(x[:height, :width], pixels, maxval)
         else:
             for i, px in enumerate(pixels):
-                od.copy_in(x[i, :height, :width], px, maxval)
+                programs.copy_in(x[i, :height, :width], px, maxval)
 
-    return od._pool(kind, shape, dtype, device, enqueue, fill)
+    return programs.pool(kind, shape, dtype, device, enqueue, fill)
 
 
 @mode_keyed_cache(maxsize=16)
@@ -638,7 +620,7 @@ def _compiled_sharded_onedispatch_slab(n_images: int, height: int, width: int,
     geom = Geometry.of(height, width, preset, num_shards)
     return _sharded_pool("sharded_onedispatch_slab", (n_images, geom.ph, geom.pw, 3), n_images,
                          height, width, preset, variant, num_shards, device, dtype, maxval,
-                         luma_key, chroma_key, n_images > 1 and od.slab_onepack_enabled())
+                         luma_key, chroma_key, n_images > 1 and slab_onepack_enabled())
 
 
 def _prefetch(state: ShardedState) -> None:
@@ -648,20 +630,9 @@ def _prefetch(state: ShardedState) -> None:
     dev0 = state.devices[0]
     t = state.tables
     with on_device(dev0):
-        small = torch.cat([
-            torch.stack([x.to(dev0, non_blocking=True) for x in state.bits]).reshape(-1),
-            t["n_present"].to(torch.int64).reshape(-1),
-            t["sym_by_leaf"].to(torch.int64).reshape(-1),
-            t["len_by_leaf"].to(torch.int64).reshape(-1),
-        ])
-        if dev0.type != "cuda":
-            state.small = small
-            return
-        host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
-        host.copy_(small, non_blocking=True)
-        state.small_ready = torch.cuda.Event()
-        state.small_ready.record()
-        state.small = host
+        state.small, state.small_ready = pinned_copy([
+            torch.stack([x.to(dev0, non_blocking=True) for x in state.bits]),
+            t["n_present"], t["sym_by_leaf"], t["len_by_leaf"]])
 
 
 def _fetch_segments(devices: list[torch.device], words: list[list[torch.Tensor]],
@@ -676,15 +647,6 @@ def _fetch_segments(devices: list[torch.device], words: list[list[torch.Tensor]]
         offs = np.concatenate([[0], np.cumsum(needed[s])])
         out.append([host[offs[i]: offs[i + 1]].view(np.uint8) for i in range(len(words[s]))])
     return out
-
-
-def _check_bits(state_hists: np.ndarray, tables, packed: int, what: str) -> None:
-    """DMMT_CHECK_BITS: the packed bit count against the histograms x code
-    lengths prediction."""
-    predicted = exact_scan_bits(split_histograms(state_hists), *tables.flat())
-    if predicted != packed:
-        raise AssertionError(f"{what} packed {packed} bits but histograms x tables predict "
-                             f"{predicted}")
 
 
 def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
@@ -706,12 +668,12 @@ def _finish_onedispatch(state: ShardedState) -> list[tuple[bytes, object]]:
     spec_lens = rest[4 * b + 1024 * b:].reshape(b, 4, 256)
     needed = (bits + 31) // 32
     segments = _fetch_segments(state.devices, state.words, needed)
-    check = state.hists.sum(dim=0).cpu().numpy() if check_bits_enabled() else None
     results = []
     for i in range(b):
-        tables = od.tables_from_spec(spec_syms[i], spec_lens[i], spec_ns[i])
-        if check is not None:
-            _check_bits(check[i], tables, int(bits[:, i].sum()), f"sharded one-dispatch image {i}")
+        tables = tables_from_spec(spec_syms[i], spec_lens[i], spec_ns[i])
+        # the shards' histograms of image i: the prediction is their sum's
+        check_scan_bits(bits[:, i].sum(), (split_histograms(state.hists[:, i]), tables),
+                        f"sharded one-dispatch image {i}")
         results.append((merge_and_stuff([(segments[s][i], int(bits[s, i])) for s in range(n)]),
                         tables))
     state.result = results
@@ -747,7 +709,7 @@ def _compiled_shard_pack(num_shards: int, nl_s: int, nc_s: int, luma_per_mcu: in
     n_values = 2 * 4 * 256 + 1
     shapes = ((num_shards, nl_s, 64), (num_shards, nc_s, 64), (num_shards, nc_s, 64),
               (n_values,), (n_values,))
-    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, od.HostStaging(torch.int32))
+    dtypes = (torch.int16, torch.int16, torch.int16, torch.int32, programs.HostStaging(torch.int32))
 
     def enqueue(inputs, _state):
         luma, cb, cr, values, _ = inputs
@@ -766,7 +728,7 @@ def _compiled_shard_pack(num_shards: int, nl_s: int, nc_s: int, luma_per_mcu: in
             cr[s].copy_(crz)
         stage_values(values, staging, host)
 
-    return od._pool("shard_pack", shapes, dtypes, device, enqueue, fill)
+    return programs.pool("shard_pack", shapes, dtypes, device, enqueue, fill)
 
 
 def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
@@ -777,8 +739,6 @@ def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
     every shard on one card the packs are one replay of _compiled_shard_pack;
     otherwise op by op. The result stays on the state for a later finish,
     and a program's instance is given back."""
-    from ..encoder import HuffmanTables
-
     if state.result is not None:
         return state.result[0]
     geom, devices = state.geom, state.devices
@@ -791,22 +751,19 @@ def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
     # DMMT_NO_FUSED_PACK is not set (the JAX package's _use_fused_pack),
     # with the worst-case word buffer of the shape; the staged pack with
     # the JAX package's bucket of the longest shard's words
-    fused = kernels_on(devices) and _use_fused_pack()
+    fused = kernels_on(devices) and use_fused_pack()
     words_cap = (geom.n_scan * 64 + 2 if fused
                  else words_capacity(max((b + 31) // 32 + 2 for b in bits)))
     key = (geom.rows_per_shard, geom.valid_mcu_rows, geom.pw // geom.preset.mcu_width)
 
     def read(words: list[torch.Tensor], packed: list[torch.Tensor]) -> tuple[bytes, object]:
-        if check_bits_enabled():
-            for s, p in enumerate(packed):
-                if int(p.sum()) != bits[s]:
-                    raise AssertionError(f"shard {s} packed {int(p.sum())} bits but its "
-                                         f"histograms predict {bits[s]}")
+        for s, p in enumerate(packed):
+            check_scan_bits(p, bits[s], f"shard {s}")
         needed = np.array([[(b + 31) // 32] for b in bits])
         segments = _fetch_segments(devices, [[w] for w in words], needed)
         return merge_and_stuff([(segments[s][0], bits[s]) for s in range(len(devices))]), tables
 
-    card = _program_card(state.blocks[0][0], devices)
+    card = programs.card(state.blocks[0][0], devices)
     if card is None:
         packs = []
         for s, (blocks, dev) in enumerate(zip(state.blocks, devices)):
@@ -819,7 +776,7 @@ def _finish_twodispatch(state: ShardedState) -> tuple[bytes, object]:
         pool = _compiled_shard_pack(geom.num_shards, int(state.blocks[0][0].shape[0]),
                                     int(state.blocks[0][1].shape[0]), geom.lpm, words_cap, *key,
                                     fused, card)
-        result = od._run_once(pool, (state.blocks, values), read)
+        result = programs.run_once(pool, (state.blocks, values), read)
     state.result = [result]
     if state.release is not None:
         state.release()  # its instance may replay again
@@ -874,7 +831,7 @@ def start_sharded_encode_slab(
     frames = list(pixels_stack)
     b, (h, w) = len(frames), frames[0].shape[:2]
     geom = Geometry.of(h, w, config.chroma_subsampling, config.num_shards)
-    limit = od.slab_max_blocks()
+    limit = slab_max_blocks()
     if b * geom.n_scan > limit:
         raise ValueError(f"start_sharded_encode_slab: {b} x {geom.n_scan} blocks per shard "
                          f"exceeds the {limit}-block group bound (DMMT_SLAB_MAX_BLOCKS); "
@@ -882,13 +839,13 @@ def start_sharded_encode_slab(
     if not use_sharded_onedispatch(config, h, w, devices):
         raise ValueError("the sharded slab needs the one-dispatch sharded encode "
                          "(use_sharded_onedispatch)")
-    card = _program_card(frames[0], devices)
+    card = programs.card(frames[0], devices)
     if card is None:
         return _start(frames, maxval, config, devices, onedispatch=True)
     lq, cq = quantization_table_pair(config.quantization_preset, config.quality)
+    key = programs.program_key(frames[0], maxval, lq, cq, card)
     pool = _compiled_sharded_onedispatch_slab(b, h, w, config.chroma_subsampling,
-                                              config.dct_variant, config.num_shards,
-                                              *od.program_key(frames[0], maxval, lq, cq, card))
+                                              config.dct_variant, config.num_shards, *key)
     return _replay(pool, frames, maxval)
 
 

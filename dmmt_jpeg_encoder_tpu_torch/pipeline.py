@@ -14,17 +14,17 @@ lie on.
 
 `run_device_pipeline` / `run_device_pipeline_batch` are the two-dispatch
 encode's device phase: the phase-1 kernel, DC DPCM and the four symbol
-histograms, left on the device (encoder.HuffmanTables.from_histograms
+histograms, left on the device (huffman/tables.HuffmanTables.from_histograms
 fetches the histograms in one copy). The batch form runs phase 1 once over
 the images row-stacked, each pre-padded to its MCU multiple, as the slab
 does (onedispatch.pack_inputs), and counts per image with the grouped
 histogram kernel. As in the JAX package, each is one program on a card:
 one replay of a CUDA graph of its eager enqueue (`device_phase`,
 `device_phase_batch`) from `_compiled_pipeline` / `_compiled_pipeline_batch`
-(maxsize 32 / 16, keyed as the JAX package's plus onedispatch.program_key),
+(maxsize 32 / 16, keyed as the JAX package's plus programs.program_key),
 whose instance the result holds until it is collected (its blocks are the
 graph's outputs until then). The CPU runs the same enqueue eagerly
-(`program_card` decides).
+(programs.card decides).
 
 `zigzag_blocks` turns RGB into DPCM'd zigzag blocks on every path (the
 counterpart of the JAX package's encode_blocks_from_planes and
@@ -54,6 +54,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import programs
 from .config import ChromaSubsamplingPreset, DCTVariant, EncoderConfig
 from .entropy.categorize import batched_symbol_histograms, symbol_histograms
 from .ops.color import chroma_sums, luma
@@ -229,18 +230,6 @@ class DeviceEncodeResult:
     release: Callable | None = field(default=None, repr=False, compare=False)
 
 
-def program_card(pixels, device) -> torch.device | None:
-    """The card on which a two-dispatch half (run_device_pipeline,
-    run_device_pipeline_batch, bitstream/device_pack.device_pack_scan and
-    device_pack_scan_batch) replays its program: where `pixels` (a tensor)
-    lies or `device` names (a host array), when that is a card; None for
-    the eager enqueue (the CPU)."""
-    from . import onedispatch as od
-
-    dev = od._target(pixels, device)
-    return dev if dev.type == "cuda" else None
-
-
 def device_phase(
     rgb: torch.Tensor,
     maxval: int,
@@ -272,15 +261,13 @@ def run_device_pipeline(
     host array is encoded on `device`, a tensor where it lies. On a card:
     one replay of the program (_compiled_pipeline), whose instance the
     result holds until it is collected; on the CPU: device_phase."""
-    card = program_card(pixels, device)
+    card = programs.card(pixels, device)
     if card is None:
         return device_phase(as_device(pixels, maxval, device), maxval, config, luma_q, chroma_q)
-    from . import onedispatch as od
-
     pool = _compiled_pipeline(int(pixels.shape[0]), int(pixels.shape[1]),
                               config.chroma_subsampling, config.dct_variant,
-                              *od.program_key(pixels, maxval, luma_q, chroma_q, card))
-    return od._start(pool, pixels, maxval)[0]
+                              *programs.program_key(pixels, maxval, luma_q, chroma_q, card))
+    return programs.start(pool, pixels, maxval)[0]
 
 
 @mode_keyed_cache(maxsize=32)
@@ -289,16 +276,14 @@ def _compiled_pipeline(height: int, width: int, preset: ChromaSubsamplingPreset,
                        maxval: int, luma_key: tuple, chroma_key: tuple):
     """The first half of the two-dispatch encode of one [H, W, 3] image:
     device_phase. Keyed as the JAX package's program, plus
-    onedispatch.program_key."""
-    from . import onedispatch as od
-
+    programs.program_key."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
-    lq, cq = od._table(luma_key), od._table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
 
     def enqueue(x, state):
         return [device_phase(x, maxval, config, lq, cq, state)]
 
-    return od._pool("pipeline", (height, width, 3), dtype, device, enqueue)
+    return programs.pool("pipeline", (height, width, 3), dtype, device, enqueue)
 
 
 def image_layout(shape) -> tuple[bool, int, int]:
@@ -403,16 +388,14 @@ def run_device_pipeline_batch(
     b = int(pixels_stack.shape[0])
     planar, height, width = image_layout(pixels_stack.shape[1:])
     stack = mcu_padded_stack(pixels_stack, maxval, config.chroma_subsampling)
-    card = program_card(stack, device)
+    card = programs.card(stack, device)
     if card is None:
         rgb = stacked_rows(as_device(stack, maxval, device), planar)
         return tuple(device_phase_batch(rgb, b, maxval, config, luma_q, chroma_q))
-    from . import onedispatch as od
-
     pool = _compiled_pipeline_batch(b, height, width, config.chroma_subsampling,
                                     config.dct_variant, planar,
-                                    *od.program_key(stack, maxval, luma_q, chroma_q, card))
-    return tuple(od._start(pool, stack, maxval))
+                                    *programs.program_key(stack, maxval, luma_q, chroma_q, card))
+    return tuple(programs.start(pool, stack, maxval))
 
 
 @mode_keyed_cache(maxsize=16)
@@ -423,15 +406,13 @@ def _compiled_pipeline_batch(n_images: int, height: int, width: int,
     """The first half of a fused_batch chunk over an MCU-padded stack: the
     row stack (with the planar interleave), device_phase_batch. Keyed as
     the JAX package's program, plus the group's size and layout (the
-    input's shape) and onedispatch.program_key."""
-    from . import onedispatch as od
-
+    input's shape) and programs.program_key."""
     config = EncoderConfig(chroma_subsampling=preset, dct_variant=variant)
-    lq, cq = od._table(luma_key), od._table(chroma_key)
+    lq, cq = programs.key_table(luma_key), programs.key_table(chroma_key)
     ph, pw = padded_size(height, width, preset)
 
     def enqueue(x, state):
         return device_phase_batch(stacked_rows(x, planar), n_images, maxval, config, lq, cq, state)
 
     shape = (n_images, 3, ph, pw) if planar else (n_images, ph, pw, 3)
-    return od._pool("pipeline_batch", shape, dtype, device, enqueue)
+    return programs.pool("pipeline_batch", shape, dtype, device, enqueue)

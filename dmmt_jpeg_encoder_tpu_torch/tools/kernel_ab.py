@@ -426,7 +426,7 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
     """{input name: (kind, [call arguments, ...])}: each kernel's inputs as
     the encodes pass them (with the encode's output for dct and lookup)."""
     import dmmt_jpeg_encoder_tpu_torch as port
-    from .. import onedispatch, pipeline
+    from .. import onedispatch, programs
     from ..bitstream import device_pack, emission_pack
     from ..ops import block_hist, fused, fused_arai, fused_phase1, histogram, mxu_dct, pallas_dct
     from ..pipeline import row_stack
@@ -514,9 +514,9 @@ def capture_inputs(dev: torch.device, kinds: list[str]) -> dict:
             onedispatch.finish_one_dispatch(state)
 
     def eager_two_dispatch():
-        """The two-dispatch halves op by op (pipeline.program_card naming no
-        card), so that every wrapper call passes the grabs."""
-        return _patched(pipeline, "program_card", lambda real: lambda pixels, device: None)
+        """The two-dispatch halves op by op (programs.card naming no card),
+        so that every wrapper call passes the grabs."""
+        return _patched(programs, "card", lambda real: lambda pixels, device: None)
 
     inputs = {}
     if "dct" in kinds:

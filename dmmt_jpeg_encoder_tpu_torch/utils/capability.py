@@ -14,14 +14,13 @@ XLA paths. Here `kernels_capable(device)` answers per device:
   launch or check raises: the port never hides the card behind a fallback.
 
 `trace_mode_key()` and `mode_keyed_cache(maxsize)` are the counterparts of
-the JAX package's: every cache of captured programs (onedispatch.py's
-CUDA graphs: the one-dispatch starts and the two-dispatch halves) keys on
-the environment modes baked into a capture, so that a mode toggled after
-the first capture at a geometry takes effect. The key holds every knob
-that those enqueues read (DMMT_P1, DMMT_HIST, DMMT_P1_PREC,
-DMMT_SLAB_ONEPACK, and DMMT_NO_FUSED_PACK, which picks the two-dispatch
-packs' route and which neither package's one-dispatch program reads).
-The JAX key's other entries have no
+the JAX package's: every cache of captured programs (CUDA graphs, run by
+programs.py) keys on the environment modes baked into a capture, so that
+a mode toggled after the first capture at a geometry takes effect. The
+key holds every knob that those enqueues read (DMMT_P1, DMMT_HIST,
+DMMT_P1_PREC, DMMT_SLAB_ONEPACK, and DMMT_NO_FUSED_PACK, which picks the
+two-dispatch packs' route and which neither package's one-dispatch
+program reads). The JAX key's other entries have no
 counterpart: DMMT_FUSED1_TILEW (the TPU kernel's tile width; K10's tiling
 is fixed), DMMT_PALLAS_INTERPRET and pallas_capable() (a graph is
 captured only on a card, whose kernels always run; the CPU runs the plain

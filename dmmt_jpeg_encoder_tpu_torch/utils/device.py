@@ -9,7 +9,10 @@ after that; callers must not modify it. `upload` copies a per-image array
 (code tables, block offsets) through pinned memory, asynchronously.
 `narrow_pixels` and `as_device` bring an image's samples to the device.
 `on_device` makes a card current, so that kernels launched through ctypes
-(which go to the current card) run where their tensors lie.
+(which go to the current card) run where their tensors lie. The other
+way: `pinned_copy` brings a finish's small results to pinned host memory
+behind the work that made them, and `side_streams` gives a card's upload
+and fetch streams.
 """
 
 from __future__ import annotations
@@ -60,3 +63,31 @@ def on_device(device: torch.device):
     effect for the CPU."""
     device = torch.device(device)
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+_SIDE_STREAMS: dict[int, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+
+
+def side_streams(device: torch.device) -> tuple[torch.cuda.Stream, torch.cuda.Stream]:
+    """(upload, fetch) streams of a CUDA device, made once: host->device
+    uploads and device->host word fetches each run on their own stream,
+    beside the compute (current) stream."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
+    return _SIDE_STREAMS[index]
+
+
+def pinned_copy(parts: list[torch.Tensor]) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+    """(host tensor, event): `parts` (on one device) flattened, as int64 and
+    concatenated, then on a card copied into pinned host memory behind the
+    work queued on the current stream, with an event recorded after the
+    copy; on the CPU the concatenation itself and no event."""
+    small = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+    if small.device.type != "cuda":
+        return small, None
+    host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
+    host.copy_(small, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready

@@ -267,9 +267,13 @@ def test_port_imports_no_jax():
         "from dmmt_jpeg_encoder_tpu_torch.parallel import projection\n"
         "assert [r['chips'] for r in projection.projected_scaling_table(slab_b=None)] == [1, 2, 4, 8]\n"
         "assert capability.trace_mode_key()[0] == 'plane'\n"
+        "from dmmt_jpeg_encoder_tpu_torch import programs\n"
         "pool = od._compiled_onedispatch(16, 24, cfg.chroma_subsampling, cfg.dct_variant, False,"
-        " *od.program_key(px, 255, lq, cq, torch.device('cuda', 0)))\n"
-        "assert pool.idle == [] and od.graph_bytes() == 0\n"
+        " *programs.program_key(px, 255, lq, cq, torch.device('cuda', 0)))\n"
+        "assert pool.idle == [] and programs.graph_bytes() == 0\n"
+        "assert programs.card(px, 'cpu') is None and programs.card(px, ['cpu', 'cpu:0']) is None\n"
+        "from dmmt_jpeg_encoder_tpu_torch.huffman.tables import HuffmanTables, split_histograms\n"
+        "assert HuffmanTables is p.HuffmanTables and len(split_histograms(np.zeros(544))) == 4\n"
         "bad = [m for m in sys.modules if m == 'jaxlib' or m.startswith(('jax.', 'dmmt_jpeg_encoder_tpu.'))"
         " or m == 'dmmt_jpeg_encoder_tpu']\n"
         "assert not bad, bad\n"

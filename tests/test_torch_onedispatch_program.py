@@ -1,13 +1,15 @@
-"""PyTorch port, the one-dispatch programs (onedispatch.py): the mode key
+"""PyTorch port, the one-dispatch programs (onedispatch.py on the runtime
+of programs.py): the mode key
 (utils/capability.trace_mode_key, mode_keyed_cache) against the JAX
 package's, the three program caches' names and bounds, what a program key
 separates, the lease pool of captured instances, and the CPU start
 functions' bytes against the JAX package's encode_array.
 
 A CUDA graph is captured only on a card (chip_smoke.py checks the
-replays). Here `_Program` is replaced by a fake that runs the eager
-enqueue on the CPU, so the start functions' card path (keys, caches,
-pools, leases) runs as it does on a card, graph aside. The tolerance is
+replays). Here `programs.Program` is replaced by a fake that runs the
+eager enqueue on the CPU, and `programs.target` names a card, so the
+start functions' card path (keys, caches, pools, leases) runs as it does
+on a card, graph aside. The tolerance is
 zero: bytes must be identical."""
 
 import gc
@@ -20,6 +22,7 @@ import dmmt_jpeg_encoder_tpu as dj
 from dmmt_jpeg_encoder_tpu import onedispatch as jod
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
 from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
+from dmmt_jpeg_encoder_tpu_torch import programs
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset, DCTVariant, config_from_jax
 from dmmt_jpeg_encoder_tpu_torch.kernels import build
 from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
@@ -48,18 +51,18 @@ def _clean(monkeypatch):
 
 class FakeProgram:
     """A captured instance without the graph: `run` copies the call's data
-    into the static input (or inputs: onedispatch.static_input, on the
+    into the static input (or inputs: programs.static_input, on the
     CPU) with the program's `fill`, counts one replay of its kind, and runs
     the eager enqueue over it on the CPU."""
 
     count = 0
     bytes = 0
 
-    def __init__(self, kind, shape, dtype, device, enqueue, fill=tod.copy_in):
+    def __init__(self, kind, shape, dtype, device, enqueue, fill=programs.copy_in):
         self.kind, self.enqueue, self.fill = kind, enqueue, fill
-        self.input = tod.static_input(shape, dtype, torch.device("cpu"))
+        self.input = programs.static_input(shape, dtype, torch.device("cpu"))
         FakeProgram.count += 1
-        tod._PROGRAMS.add(self)
+        programs.PROGRAMS.add(self)
 
     def run(self, pixels, maxval):
         self.fill(self.input, pixels, maxval)
@@ -71,8 +74,8 @@ class FakeProgram:
 def card_path(monkeypatch):
     """The start functions take their card path, with FakeProgram."""
     monkeypatch.setattr(FakeProgram, "count", 0)
-    monkeypatch.setattr(tod, "_Program", FakeProgram)
-    monkeypatch.setattr(tod, "_target", lambda pixels, device: CARD)
+    monkeypatch.setattr(programs, "Program", FakeProgram)
+    monkeypatch.setattr(programs, "target", lambda pixels, device: CARD)
     return FakeProgram
 
 
@@ -95,7 +98,7 @@ def _pool_args(n_images=None, maxval=255, planar=False, pixels=None, lq=None, cq
     pixels = np.zeros((16, 16, 3), np.uint8) if pixels is None else pixels
     head = () if n_images is None else (n_images,)
     return (*head, 16, 16, P420, DCTVariant.ARAI, planar,
-            *tod.program_key(pixels, maxval, dlq if lq is None else lq, dcq if cq is None else cq,
+            *programs.program_key(pixels, maxval, dlq if lq is None else lq, dcq if cq is None else cq,
                              CARD))
 
 
@@ -105,10 +108,10 @@ def _pool_of(start, px, maxval, cfg, lq, cq):
     key = (cfg.chroma_subsampling, cfg.dct_variant, False)
     if start is tod.start_one_dispatch:
         return tod._compiled_onedispatch(*px.shape[:2], *key,
-                                         *tod.program_key(px, maxval, lq, cq, CARD))
+                                         *programs.program_key(px, maxval, lq, cq, CARD))
     cache = (tod._compiled_onedispatch_slab if start is tod.start_one_dispatch_slab
                else tod._compiled_onedispatch_multi)
-    return cache(2, *px.shape[:2], *key, *tod.program_key(px, maxval, lq, cq, CARD))
+    return cache(2, *px.shape[:2], *key, *programs.program_key(px, maxval, lq, cq, CARD))
 
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))
@@ -167,9 +170,9 @@ def test_program_key_separates_n_images():
     # a uint8 host array, a uint16 one at maxval 255 (narrowed for the copy)
     # and a uint8 tensor key alike
     u8 = np.zeros((16, 16, 3), np.uint8)
-    assert (tod.program_key(u8, 255, u8, u8, CARD)[1]
-            == tod.program_key(u8.astype(np.uint16), 255, u8, u8, CARD)[1]
-            == tod.program_key(torch.from_numpy(u8), 255, u8, u8, CARD)[1] == torch.uint8)
+    assert (programs.program_key(u8, 255, u8, u8, CARD)[1]
+            == programs.program_key(u8.astype(np.uint16), 255, u8, u8, CARD)[1]
+            == programs.program_key(torch.from_numpy(u8), 255, u8, u8, CARD)[1] == torch.uint8)
 
 
 def test_lease_held_until_finish(card_path):
@@ -224,18 +227,19 @@ def test_graph_memory_bound(card_path, monkeypatch):
     raises when the leased ones alone hold that much."""
     px, maxval, _, cfg, lq, cq = _fixture("7x17_p444")
     gc.collect()
-    assert tod.graph_bytes() == 0
+    assert tod.graph_bytes is programs.graph_bytes  # the benchmark reads it on onedispatch
+    assert programs.graph_bytes() == 0
     monkeypatch.setattr(FakeProgram, "bytes", 10)
-    monkeypatch.setattr(tod, "GRAPH_MAX_BYTES", 25)
+    monkeypatch.setattr(programs, "GRAPH_MAX_BYTES", 25)
     held = [tod.start_one_dispatch(px, maxval, cfg, lq, cq) for _ in range(3)]
-    assert tod.graph_bytes() == 30
+    assert programs.graph_bytes() == 30
     with pytest.raises(RuntimeError, match="GRAPH_MAX_BYTES"):
         tod.start_one_dispatch(px, maxval, cfg, lq, cq)
     for state in held:
         tod.finish_one_dispatch(state, cfg)
     # another key: its first start drops the three idle instances
     other = tod.start_one_dispatch(px, maxval - 1, cfg, lq, cq)
-    assert card_path.count == 4 and tod.graph_bytes() == 10
+    assert card_path.count == 4 and programs.graph_bytes() == 10
     tod.finish_one_dispatch(other, cfg)
 
 

@@ -5,9 +5,9 @@ On a card a program's outputs are the same tensors on every replay, so a
 state or result of one start holds tensors that the next replay of its
 instance overwrites. In the JAX package a state's arrays never change: a
 second finish_one_dispatch(state) returns the first one's bytes and
-tables. Here `_Program` is replaced by SharingProgram, whose `run` writes
-each run's results into the first run's tensors, as a replay does, and
-`onedispatch._target` names a card, so every start function takes its
+tables. Here `programs.Program` is replaced by SharingProgram, whose `run`
+writes each run's results into the first run's tensors, as a replay does,
+and `programs.target` names a card, so every start function takes its
 card path (keys, caches, pools, leases) on the CPU. For each state kind
 (single, slab, multi, sharded, sharded slab, sharded two-dispatch) a state
 A is finished, a start B replays the same instance and is finished, and A
@@ -27,6 +27,7 @@ import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
 from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
 from dmmt_jpeg_encoder_tpu_torch import pipeline as tpipe
+from dmmt_jpeg_encoder_tpu_torch import programs
 from dmmt_jpeg_encoder_tpu_torch.bitstream import device_pack as tpack
 from dmmt_jpeg_encoder_tpu_torch.parallel import sharding as tshard
 from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
@@ -50,17 +51,17 @@ class SharingProgram:
     """A captured instance without the graph, whose outputs are shared as
     a graph's are: `run` fills the static input, runs the eager enqueue on
     the CPU and writes its results into the tensors that the first run
-    returned; every run hands out onedispatch._handle of those."""
+    returned; every run hands out programs.handle of those."""
 
     count = 0
     bytes = 0
 
-    def __init__(self, kind, shape, dtype, device, enqueue, fill=tod.copy_in):
+    def __init__(self, kind, shape, dtype, device, enqueue, fill=programs.copy_in):
         self.kind, self.enqueue, self.fill = kind, enqueue, fill
-        self.input = tod.static_input(shape, dtype, torch.device("cpu"))
+        self.input = programs.static_input(shape, dtype, torch.device("cpu"))
         self.outputs = None
         SharingProgram.count += 1
-        tod._PROGRAMS.add(self)
+        programs.PROGRAMS.add(self)
 
     def run(self, pixels, maxval):
         self.fill(self.input, pixels, maxval)
@@ -69,7 +70,7 @@ class SharingProgram:
             self.outputs = fresh
         else:
             _write_into(self.outputs, fresh)
-        return [tod._handle(out) for out in self.outputs]
+        return [programs.handle(out) for out in self.outputs]
 
 
 def _write_into(dst, src):
@@ -95,8 +96,8 @@ def sharing(monkeypatch):
     for k in ("DMMT_P1", "DMMT_P1_PREC", "DMMT_HIST", "DMMT_NO_FUSED_PACK", "DMMT_SLAB_ONEPACK"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr(SharingProgram, "count", 0)
-    monkeypatch.setattr(tod, "_Program", SharingProgram)
-    monkeypatch.setattr(tod, "_target", lambda pixels, device: CARD)
+    monkeypatch.setattr(programs, "Program", SharingProgram)
+    monkeypatch.setattr(programs, "target", lambda pixels, device: CARD)
     monkeypatch.setattr(capability, "kernels_capable", lambda device: True)
     yield
     for module, name in PROGRAM_CACHES:
@@ -173,7 +174,7 @@ def test_second_finish_gives_the_first_finishs_bytes(monkeypatch, kind):
     assert SharingProgram.count == (2 if kind == "sharded_twodispatch" else 1)
     assert other != first
     assert _jpegs(cfg, finish(states, cfg)) == first
-    monkeypatch.setattr(tod, "_target", lambda pixels, device: torch.device("cpu"))
+    monkeypatch.setattr(programs, "target", lambda pixels, device: torch.device("cpu"))
     device = ["cpu"] * shards if shards > 1 else "cpu"
     assert first == [dt.encode_array(px, 255, cfg, device=device) for px in a]
 
@@ -205,5 +206,5 @@ def test_pack_scan_twice_gives_the_same_bytes(monkeypatch, backend):
     tenc.pack_scan(rc, tc, cfg)
     assert tenc.pack_scan(ra, ta, cfg) == first
     assert SharingProgram.count == (2 if backend == "host" else 3)
-    monkeypatch.setattr(tod, "_target", lambda pixels, device: torch.device("cpu"))
+    monkeypatch.setattr(programs, "target", lambda pixels, device: torch.device("cpu"))
     assert tenc._jpeg(SHAPE, cfg, lq, cq, first, ta) == dt.encode_array(a, 255, cfg, device="cpu")

@@ -7,9 +7,9 @@ encode_array and encode_batch at 2 and 8 shards against the JAX
 package's encode_array on the CPU.
 
 A CUDA graph is captured only on a card (chip_smoke.py checks the
-replays). Here, as in test_torch_onedispatch_program.py, `_Program` is
-replaced by FakeProgram, which runs the eager enqueue on the CPU, and
-`onedispatch._target` names a card, so the card route (keys, caches,
+replays). Here, as in test_torch_onedispatch_program.py,
+`programs.Program` is replaced by FakeProgram, which runs the eager
+enqueue on the CPU, and `programs.target` names a card, so the card route (keys, caches,
 pools, leases) runs as it does on a card, graph aside; `capable` makes
 the CPU run the kernel routes' plain versions. The tolerance is zero:
 bytes must be identical."""
@@ -23,7 +23,7 @@ import torch
 import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu.parallel import sharding as jshard
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
-from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
+from dmmt_jpeg_encoder_tpu_torch import programs
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset, DCTVariant, config_from_jax
 from dmmt_jpeg_encoder_tpu_torch.parallel import sharding as tshard
 from dmmt_jpeg_encoder_tpu_torch.tables import quantization_table_pair
@@ -70,7 +70,7 @@ def _cache_args(n_images=None, height=16, width=16, preset=P420, variant=DCTVari
     pixels = np.zeros((16, 16, 3), np.uint8) if pixels is None else pixels
     head = () if n_images is None else (n_images,)
     return (*head, height, width, preset, variant, num_shards,
-            *tod.program_key(pixels, maxval, *(tables or _tables()), CARD))
+            *programs.program_key(pixels, maxval, *(tables or _tables()), CARD))
 
 
 def _pool(px, cfg, n_images=None):

@@ -16,6 +16,7 @@ import torch
 import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
 from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
+from dmmt_jpeg_encoder_tpu_torch.bitstream.device_pack import exact_scan_bits
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset
 from perfbench import frames, harness, reference
 
@@ -91,7 +92,7 @@ def test_tables_from_histograms_carry_the_exact_scan_length():
     hists = (result.luma_dc_hist, result.luma_ac_hist, result.chroma_dc_hist,
              result.chroma_ac_hist)
     assert tables.flat() is tables.flat()
-    assert tables.scan_bits == tenc.exact_scan_bits(hists, *tables.flat())
+    assert tables.scan_bits == exact_scan_bits(hists, *tables.flat())
     scan = tenc.pack_scan(result, tables, config)
     unstuffed = len(scan) - scan.count(b"\xff\x00")
     assert unstuffed == (tables.scan_bits + 7) // 8

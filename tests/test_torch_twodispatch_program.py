@@ -8,10 +8,10 @@ lease of a first half's result, and the bytes of every two-dispatch path on
 the CPU and on the card path, against the JAX package's encode_array.
 
 A CUDA graph is captured only on a card (chip_smoke.py checks the
-replays). Here, as in test_torch_onedispatch_program.py, `_Program` is
-replaced by FakeProgram, which fills its inputs, counts one replay of its
-kind and runs the eager enqueue on the CPU, and `onedispatch._target`
-names a card, so the card route (keys, caches, pools, leases, one replay
+replays). Here, as in test_torch_onedispatch_program.py,
+`programs.Program` is replaced by FakeProgram, which fills its inputs,
+counts one replay of its kind and runs the eager enqueue on the CPU, and
+`programs.target` names a card, so the card route (keys, caches, pools, leases, one replay
 per program) runs as it does on a card, graph aside. The tolerance is
 zero: bytes must be identical."""
 
@@ -29,6 +29,7 @@ from dmmt_jpeg_encoder_tpu.parallel import sharding as jshard
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
 from dmmt_jpeg_encoder_tpu_torch import onedispatch as tod
 from dmmt_jpeg_encoder_tpu_torch import pipeline as tpipe
+from dmmt_jpeg_encoder_tpu_torch import programs
 from dmmt_jpeg_encoder_tpu_torch.bitstream import device_pack as tpack
 from dmmt_jpeg_encoder_tpu_torch.config import ChromaSubsamplingPreset, DCTVariant, config_from_jax
 from dmmt_jpeg_encoder_tpu_torch.kernels import build
@@ -70,8 +71,8 @@ def card_path(monkeypatch):
     """Every two-dispatch half takes its card path, with FakeProgram; the
     devices run the kernels (their plain versions here)."""
     monkeypatch.setattr(FakeProgram, "count", 0)
-    monkeypatch.setattr(tod, "_Program", FakeProgram)
-    monkeypatch.setattr(tod, "_target", lambda pixels, device: CARD)
+    monkeypatch.setattr(programs, "Program", FakeProgram)
+    monkeypatch.setattr(programs, "target", lambda pixels, device: CARD)
     monkeypatch.setattr(capability, "kernels_capable", lambda device: True)
     return FakeProgram
 
@@ -113,7 +114,7 @@ def test_cache_bounds_equal_the_jax_packages(name):
 def _cache_args(name):
     """Arguments of each cache for a 16x16 P420 image of two shards."""
     lq, cq = quantization_table_pair(dt.EncoderConfig().quantization_preset, None)
-    key = tod.program_key(np.zeros((16, 16, 3), np.uint8), 255, lq, cq, CARD)
+    key = programs.program_key(np.zeros((16, 16, 3), np.uint8), 255, lq, cq, CARD)
     return {
         "_compiled_pipeline": (16, 16, P420, DCTVariant.ARAI, *key),
         "_compiled_pipeline_batch": (2, 16, 16, P420, DCTVariant.ARAI, False, *key),
@@ -159,7 +160,7 @@ def test_staged_pack_shares_one_program_within_a_bucket(card_path, monkeypatch):
     assert needed[0] != needed[1]
     assert tpack.words_capacity(needed[0]) == tpack.words_capacity(needed[1]) == 4096
     assert tpack._compiled_pack.cache_info().currsize == 1
-    assert [len(p.idle) for p in tod._POOLS if p.idle and p.idle[0].kind == "pack"] == [1]
+    assert [len(p.idle) for p in programs.POOLS if p.idle and p.idle[0].kind == "pack"] == [1]
     assert (tpack.words_capacity(4095), tpack.words_capacity(4096)) == (4096, 8192)
 
 
@@ -241,7 +242,7 @@ def test_pipeline_result_holds_its_instance_until_collected(card_path):
     px = _image(86, (16, 16))
     first = tpipe.run_device_pipeline(px, 255, cfg, lq, cq)
     pool = tpipe._compiled_pipeline(16, 16, P420, DCTVariant.ARAI,
-                                    *tod.program_key(px, 255, lq, cq, CARD))
+                                    *programs.program_key(px, 255, lq, cq, CARD))
     second = tpipe.run_device_pipeline(px, 255, cfg, lq, cq)
     assert card_path.count == 2 and pool.idle == []
     del first
@@ -252,7 +253,7 @@ def test_pipeline_result_holds_its_instance_until_collected(card_path):
     assert len(pool.idle) == 2
     outputs = list(tpipe.run_device_pipeline_batch(np.stack([px, px]), 255, cfg, lq, cq))
     batch_pool = tpipe._compiled_pipeline_batch(2, 16, 16, P420, DCTVariant.ARAI, False,
-                                                *tod.program_key(px, 255, lq, cq, CARD))
+                                                *programs.program_key(px, 255, lq, cq, CARD))
     while outputs:
         assert batch_pool.idle == []
         outputs.pop()
@@ -270,7 +271,7 @@ def test_failed_capture_raises_without_fallback(card_path, monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("capture failed")
 
-    monkeypatch.setattr(tod, "_Program", broken)
+    monkeypatch.setattr(programs, "Program", broken)
     px = _image(87, (16, 16))
     with pytest.raises(RuntimeError, match="capture failed"):
         dt.encode_array(px, 255, dt.EncoderConfig(one_dispatch="off"), device="cpu")
