@@ -15,15 +15,18 @@ collected (`start`), a pack gives it back after its read (`run_once`). A
 pool whose instances are all leased captures another, within
 GRAPH_MAX_BYTES of graph memory; a failed capture raises, with no eager
 fallback on a card. `target` and `card` decide where a call runs; the
-CPU runs the eager enqueue.
+CPU runs the eager enqueue. A fill copies a large host array into a
+card's input through that card's pinned ring, band by band (`copy_in`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import threading
 import weakref
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
 
@@ -33,6 +36,7 @@ import torch
 from .kernels import build
 from .ops.block_hist import new_state
 from .utils.device import narrow_pixels, on_device
+from .utils.native import copy_pool
 from .utils.profiling import span
 
 # Graph memory of all captured instances (each its pool's bytes, as
@@ -69,12 +73,103 @@ def card(pixels: np.ndarray | torch.Tensor, device) -> torch.device | None:
     return dev if dev.type == "cuda" else None
 
 
+# The pinned ring through which copy_in uploads a host array of more than
+# RING_MIN_BYTES to a card: RING_SLOTS slots of RING_SLOT_BYTES each, one
+# ring per card, allocated at the first such fill on that card and kept for
+# the life of the process. A smaller array takes CUDA's own pageable copy,
+# which was as fast or faster at 6.2 MB on an H100's host: the ring's own
+# costs (the last band's DMA after its host copy, ~0.1-0.2 ms of host calls
+# a band) outweigh what its faster host copy saves there. A band is a
+# 1/BAND_SHARE of the array and at most a slot, in whole rows.
+# A band's host copy runs on the caller's thread and one native worker of
+# the ring's own for each COPY_BYTES_PER_HELPER of the band, at most
+# COPY_THREADS - 1 (utils/native.copy_pool): a worker woken for a small
+# band costs more than it copies.
+RING_SLOTS = 4
+RING_SLOT_BYTES = 16 << 20
+RING_MIN_BYTES = RING_SLOT_BYTES
+BAND_SHARE = 2
+COPY_THREADS = 8
+COPY_BYTES_PER_HELPER = 2 << 20
+RING_ALLOCATIONS: Counter = Counter()  # card index -> pinned rings allocated
+_RINGS: dict[int, "_Ring"] = {}
+
+
+def band_plan(shape: tuple, itemsize: int) -> list[tuple[tuple, int, int]]:
+    """The bands in which copy_in uploads a host array of `shape` and
+    `itemsize`: (index into the leading dimensions, first row, end row),
+    in order, each band whole rows of one image and plane. A row is the
+    last two dimensions of an interleaved array ([..., H, W, 3]) and the
+    last one of a planar one ([..., 3, H, W]), split further where a row
+    would not fit a slot."""
+    dim = max(0, len(shape) - (3 if shape[-1] == 3 else 2))
+    while dim < len(shape) - 1 and math.prod(shape[dim + 1:]) * itemsize > RING_SLOT_BYTES:
+        dim += 1
+    row_bytes = math.prod(shape[dim + 1:]) * itemsize
+    band_bytes = min(math.prod(shape) * itemsize // BAND_SHARE, RING_SLOT_BYTES)
+    rows, step = shape[dim], max(1, band_bytes // row_bytes)
+    return [(index, start, min(start + step, rows))
+            for index in np.ndindex(*shape[:dim]) for start in range(0, rows, step)]
+
+
+class _Ring:
+    """One card's pinned ring: RING_SLOTS slots taken in turn, each with
+    the event of the last copy out of it, and the copier of a band into a
+    slot (numpy's, where the native library is not built); the lock keeps
+    two threads that fill at once off each other's slots."""
+
+    def __init__(self, index: int):
+        self.host = torch.empty(RING_SLOTS * RING_SLOT_BYTES, dtype=torch.uint8, pin_memory=True)
+        self.slots = self.host.split(RING_SLOT_BYTES)
+        self.arrays = [slot.numpy() for slot in self.slots]
+        self.events = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+        self.copy = copy_pool(COPY_THREADS - 1, COPY_BYTES_PER_HELPER) or np.copyto
+        self.lock = threading.Lock()
+        self.next = 0
+        RING_ALLOCATIONS[index] += 1
+
+    def upload(self, dst: torch.Tensor, pixels: np.ndarray, maxval: int) -> None:
+        """Each band narrowed to the upload dtype and copied on the host
+        into the next slot, then copied to its rows of `dst` on the current
+        stream: the card moves one band while the host copies the next, and
+        the work queued after the fill follows the last band in stream
+        order. Every byte of `pixels` has been read when this returns."""
+        stream = torch.cuda.current_stream(dst.device)
+        dtype = narrow_pixels(pixels[:0], maxval).dtype
+        torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        for index, start, stop in band_plan(pixels.shape, dtype.itemsize):
+            band = np.ascontiguousarray(narrow_pixels(pixels[index][start:stop], maxval))
+            k, self.next = self.next, (self.next + 1) % RING_SLOTS
+            with span("dmmt.fill_wait"):
+                self.events[k].synchronize()
+            n = band.nbytes
+            self.copy(self.arrays[k][:n].view(dtype).reshape(band.shape), band)
+            host = self.slots[k][:n].view(torch_dtype).view(band.shape)
+            dst[index][start:stop].copy_(host, non_blocking=True)
+            self.events[k].record(stream)
+
+
+def _ring(device: torch.device) -> _Ring:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _LOCK:
+        if index not in _RINGS:
+            _RINGS[index] = _Ring(index)
+        return _RINGS[index]
+
+
 def copy_in(dst: torch.Tensor, pixels: np.ndarray | torch.Tensor, maxval: int) -> None:
-    """Copy samples into a program's input (or a window of it): a host
-    array with one pageable copy, a tensor with one device copy."""
-    if not isinstance(pixels, torch.Tensor):
-        pixels = torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval)))
-    dst.copy_(pixels)
+    """Copy samples into a program's input (or a window of it): a tensor
+    with one device copy; a host array of more than RING_MIN_BYTES into a
+    card's input through the card's pinned ring (_Ring.upload), any other
+    host array with one copy (pageable, to a card)."""
+    if isinstance(pixels, torch.Tensor):
+        dst.copy_(pixels)
+    elif dst.device.type == "cuda" and dst.element_size() * pixels.size > RING_MIN_BYTES:
+        ring = _ring(dst.device)
+        with span("dmmt.fill_staged"), ring.lock:
+            ring.upload(dst, pixels, maxval)
+    else:
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(narrow_pixels(pixels, maxval))))
 
 
 def _table_key(q: np.ndarray) -> tuple:

@@ -3,13 +3,15 @@
 The C sources are the port's own `csrc/ppm_parse.c` (the PPM parser) and
 `csrc/scan_encoder.c` (the host scan packer, bitstream/packer.py), copies
 of the JAX package's `bitstream/csrc/` files: the port reads no file of
-the JAX package. They are compiled together once on first use with `cc`
-into one library in the repository's `build/native/` directory (listed in
-.gitignore), keyed by a hash of the sources and flags. They are built
+the JAX package; and `csrc/host_copy.c`, the host copy of the upload
+ring (programs._Ring, through `copy_pool`). They are compiled together
+once on first use with `cc` into one library in the repository's
+`build/native/` directory (listed in .gitignore), keyed by a hash of the
+sources and flags. They are built
 without -march=native, so a build directory copied to another machine
 still loads. The pure-Python tokenizer in io/ppm.py and the Python packer
-in bitstream/packer.py stay as the fallbacks when no C toolchain is
-present.
+in bitstream/packer.py, and numpy's copy for the ring, stay as the
+fallbacks when no C toolchain is present.
 """
 
 from __future__ import annotations
@@ -21,11 +23,15 @@ import subprocess
 import sysconfig
 import threading
 from pathlib import Path
+from typing import Callable
+
+import numpy as np
 
 _REPO = Path(__file__).resolve().parents[2]
 PPM_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ppm_parse.c"
 SCAN_SOURCE = PPM_SOURCE.with_name("scan_encoder.c")
-SOURCES = (PPM_SOURCE, SCAN_SOURCE)
+COPY_SOURCE = PPM_SOURCE.with_name("host_copy.c")
+SOURCES = (PPM_SOURCE, SCAN_SOURCE, COPY_SOURCE)
 BUILD_DIR = _REPO / "build" / "native"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -67,3 +73,33 @@ def load_native() -> ctypes.CDLL | None:
             _LIB_FAILED = True
             return None
         return _LIB
+
+
+def copy_pool(workers: int,
+              bytes_per_helper: int) -> Callable[[np.ndarray, np.ndarray], None] | None:
+    """copy(dst, src) for two C-contiguous host arrays of the same bytes,
+    made by the calling thread and, for each whole `bytes_per_helper` of
+    them, one of `workers` native threads started here and kept for the
+    life of the process (csrc/host_copy.c); ctypes releases the
+    interpreter's lock for the call. None where the native library is not
+    built. One caller at a time per pool."""
+    lib = load_native()
+    if lib is None:
+        return None
+    lib.dmmt_copy_pool_new.argtypes = [ctypes.c_int]
+    lib.dmmt_copy_pool_new.restype = ctypes.c_void_p
+    lib.dmmt_copy_pool_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_long, ctypes.c_int]
+    lib.dmmt_copy_pool_run.restype = None
+    pool = lib.dmmt_copy_pool_new(workers)
+    if not pool:
+        return None
+    run = lib.dmmt_copy_pool_run
+
+    def copy(dst: np.ndarray, src: np.ndarray) -> None:
+        if dst.nbytes != src.nbytes or not (dst.flags.c_contiguous and src.flags.c_contiguous):
+            raise ValueError("copy_pool copies between C-contiguous arrays of equal bytes")
+        run(pool, dst.ctypes.data, src.ctypes.data, src.nbytes,
+            min(workers, src.nbytes // bytes_per_helper))
+
+    return copy

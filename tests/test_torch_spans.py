@@ -6,8 +6,9 @@ test wraps the encoder module's calls in ranges of their own (`start`,
 `finish`, `jpeg`, `upload`, as a tracer outside the program would) and
 checks that every program span lies inside the call that owns it. With no profiler, `span` is one shared no-op and opens no
 range: encodes with both of torch's range contexts made to raise give the
-same bytes. The capture and replay spans exist only on a card; their
-test skips without one (on a card: `python -m pytest --noconftest
+same bytes. The capture and replay spans, and the pinned ring's
+`dmmt.fill_staged` and `dmmt.fill_wait` inside `dmmt.fill`, exist only on
+a card; their test skips without one (on a card: `python -m pytest --noconftest
 tests/test_torch_spans.py`)."""
 
 import json
@@ -18,6 +19,7 @@ import torch
 
 import dmmt_jpeg_encoder_tpu_torch as dt
 from dmmt_jpeg_encoder_tpu_torch import encoder as tenc
+from dmmt_jpeg_encoder_tpu_torch import programs
 from dmmt_jpeg_encoder_tpu_torch.utils import profiling
 
 SHAPE = (16, 24)
@@ -103,7 +105,9 @@ def test_spans_off_never_call_record_function(monkeypatch):
 def test_capture_and_replay_spans_on_a_card(monkeypatch, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: capture and replay exist only there")
-    # a shape no other test encodes, so the first call captures its program
+    # a shape no other test encodes, so the first call captures its program;
+    # so small a frame takes the pinned ring only below its usual threshold
+    monkeypatch.setattr(programs, "RING_MIN_BYTES", 0)
     px = np.random.default_rng(23).integers(0, 256, (40, 72, 3), dtype=np.uint8)
     want = dt.encode_array(px, 255, device="cpu")
     jpegs = []
@@ -116,8 +120,12 @@ def test_capture_and_replay_spans_on_a_card(monkeypatch, tmp_path):
     assert jpegs == [want, want]
     names = [e["name"] for e in annotations]
     assert names.count("dmmt.capture") == 1 and names.count("dmmt.replay") == 2
+    assert names.count("dmmt.fill_staged") == 2
+    assert names.count("dmmt.fill_wait") == 2 * len(programs.band_plan(px.shape, 1))  # one a band
     leases = [e for e in annotations if e["name"] == "dmmt.lease"]
     assert inside(next(e for e in annotations if e["name"] == "dmmt.capture"), leases)
     assert_nested(annotations, ("dmmt.lookup", "dmmt.lease", "dmmt.fill", "dmmt.replay",
-                                *FINISH_SPANS, "dmmt.container"),
-                  {**OWNER, "dmmt.lookup": "start", "dmmt.lease": "start", "dmmt.replay": "start"})
+                                "dmmt.fill_staged", "dmmt.fill_wait", *FINISH_SPANS,
+                                "dmmt.container"),
+                  {**OWNER, "dmmt.lookup": "start", "dmmt.lease": "start", "dmmt.replay": "start",
+                   "dmmt.fill_staged": "dmmt.fill", "dmmt.fill_wait": "dmmt.fill_staged"})
