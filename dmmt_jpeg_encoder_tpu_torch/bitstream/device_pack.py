@@ -551,7 +551,8 @@ def _checked_bytes(known_bits: int):
     bit count against `known_bits`; then the wait for the pack
     (dmmt.pack_wait: the stream the fetch's copy would wait on) and one
     fetch (dmmt.word_fetch): the fused pack's stuffed length and that many
-    stuffed bytes, which the host copies (dmmt.stuff > dmmt.stuff_card), or
+    stuffed bytes (their copy to host memory: dmmt.fetch_wait), which the
+    host copies (dmmt.stuff > dmmt.stuff_card), or
     the needed words, which it stuffs (dmmt.stuff > dmmt.stuff_host: the
     staged pack, or a stuffed stream that had no room)."""
 
@@ -563,7 +564,9 @@ def _checked_bytes(known_bits: int):
                 torch.cuda.current_stream(words.device).synchronize()
         with span("dmmt.word_fetch"):
             length = -1 if stuffed is None else int(stuffed)
-            host = scan_fetch_slice(words, known_bits, length).cpu().numpy()
+            part = scan_fetch_slice(words, known_bits, length)
+            with span("dmmt.fetch_wait"):  # the copy to host memory, which the host waits for
+                host = part.cpu().numpy()
         return scan_bytes(host, known_bits, length)
 
     return read

@@ -35,7 +35,8 @@ the mxu and fused1 routes at either DMMT_P1_PREC (ops/mxu_dct).
 Under torch.profiler the host steps here, in onedispatch.py and in
 programs.py show as `dmmt.` ranges (utils/profiling.span): the staging
 ring's wait, fill and enqueue, the program's lookup, lease, fill and
-replay, the finish's bit-count wait, spec decode, word fetch, stuffing
+replay, the finish's bit-count wait, spec decode, word fetch (with the
+wait for its copy, `dmmt.fetch_wait`, inside), stuffing
 (`dmmt.stuff`, with `dmmt.stuff_card` inside where the scan came stuffed
 from the card and `dmmt.stuff_host` where the host stuffed it) and
 release, and the container. The two-dispatch tail has its own: the wait

@@ -6,9 +6,10 @@ test wraps the encoder module's calls in ranges of their own (`start`,
 `finish`, `jpeg`, `upload`, as a tracer outside the program would) and
 checks that every program span lies inside the call that owns it. With no profiler, `span` is one shared no-op and opens no
 range: encodes with both of torch's range contexts made to raise give the
-same bytes. The capture and replay spans, and the pinned ring's
-`dmmt.fill_staged` and `dmmt.fill_wait` inside `dmmt.fill`, exist only on
-a card; their test skips without one (on a card: `python -m pytest --noconftest
+same bytes. The capture and replay spans, the pinned ring's
+`dmmt.fill_staged` and `dmmt.fill_wait` inside `dmmt.fill`, and the word
+fetch's wait for its copy, `dmmt.fetch_wait`, exist only on a card; their
+test skips without one (on a card: `python -m pytest --noconftest
 tests/test_torch_spans.py`)."""
 
 import json
@@ -124,8 +125,10 @@ def test_capture_and_replay_spans_on_a_card(monkeypatch, tmp_path):
     assert names.count("dmmt.fill_wait") == 2 * len(programs.band_plan(px.shape, 1))  # one a band
     leases = [e for e in annotations if e["name"] == "dmmt.lease"]
     assert inside(next(e for e in annotations if e["name"] == "dmmt.capture"), leases)
+    assert names.count("dmmt.fetch_wait") == 2  # one a finish, inside its word fetch
     assert_nested(annotations, ("dmmt.lookup", "dmmt.lease", "dmmt.fill", "dmmt.replay",
                                 "dmmt.fill_staged", "dmmt.fill_wait", *FINISH_SPANS,
-                                "dmmt.container"),
+                                "dmmt.fetch_wait", "dmmt.container"),
                   {**OWNER, "dmmt.lookup": "start", "dmmt.lease": "start", "dmmt.replay": "start",
-                   "dmmt.fill_staged": "dmmt.fill", "dmmt.fill_wait": "dmmt.fill_staged"})
+                   "dmmt.fill_staged": "dmmt.fill", "dmmt.fill_wait": "dmmt.fill_staged",
+                   "dmmt.fetch_wait": "dmmt.word_fetch"})
